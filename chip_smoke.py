@@ -7,31 +7,49 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_smoke.py [--seed N]
 
 Phases; any failure exits non-zero:
-1. Build the three CUDA kernels from cometbft_tpu_torch/csrc/ (one nvcc
+1. Build the four CUDA kernels from cometbft_tpu_torch/csrc/ (one nvcc
    per source, all started together) and print the build seconds, the
    registers and spills ptxas reports, and the card's name and power
    limit.
-2. Hold each kernel against its plain torch version on the card at the
+2. Generate the chain every later phase uses, from --seed: 48 blocks of
+   a 200-validator set, 2 txs a block, through the real executor on the
+   card (`engine/chain_gen.generate_chain`, as `bench.py:154` sizes
+   blocksync); 9,600 precommit signatures over real sign-bytes. Its
+   first 8,192 lanes, flattened with `marshal_commit`, are the seam's
+   tile.
+3. Hold each kernel against its plain torch version on the card at the
    main path's shapes (8192 lanes): decompression on real and edge
    encodings (validity exact, points equal mod p), window sums per window
    as group elements, epilogue verdicts on cancelling and non-cancelling
-   inputs; decompression and window sums again at 200 lanes, a count
-   that divides none of their blocks, so each kernel's masking of its
-   ragged edge runs. Integers allow no tolerance: every error must be 0.
-   Then time
-   where a flush goes: the host marshal, SHA-512, the device part of the
-   RLC verify, and (under torch.profiler) the kernel launches and
-   device-busy time of the RLC verify and of the per-lane verify.
-3. The main path, with the launch counters zeroed just before it: the
-   BatchVerifier seam (`create_batch_verifier` -> Ed25519BatchVerifier,
-   batch 8192) over a 200-validator set signing vote-sized (122-byte)
-   messages, as blocksync catch-up sends them: a clean tile (all True
-   through the RLC equation), a tile with tampered s values and a
-   malformed lane (False on exactly those), a 200-lane flush (one commit,
-   bucket 256), and 256 lanes against the oracle `ref_ed25519.verify`.
-4. Print the {"kernels": [...]} line (launches from the main path, times
-   and bounds measured in this run), a timing line, the card's name and
-   power limit, and last {"ok": true, "device": {...}}.
+   inputs, point additions as group elements (identity, P + (-P) and
+   P + P lanes included); decompression, window sums and additions again
+   at 200 lanes, a count that divides none of their blocks, so each
+   kernel's masking of its ragged edge runs. Integers allow no tolerance:
+   every error must be 0. Then time where a flush goes: the host marshal,
+   SHA-512, the device part of the RLC verify, and (under torch.profiler)
+   the kernel launches and device-busy time of the RLC verify and of the
+   per-lane verify.
+4. The paths, each with the launch counters zeroed just before it and
+   read just after:
+   - the BatchVerifier seam (`create_batch_verifier` ->
+     Ed25519BatchVerifier, batch 8192): a clean tile (all True through
+     the RLC equation), a tile with tampered s values and a malformed
+     lane (False on exactly those), a 200-lane flush (one commit, bucket
+     256), and 256 lanes against the oracle `ref_ed25519.verify`;
+   - blocksync catch-up, the slice's main path: `BlocksyncReactor.sync`
+     from genesis over the chain (tile 40, batch 8192, a fresh SigCache):
+     height 48 in two tiles, the generator's app state and validator
+     set; the same sync twice more, timed, and once under
+     torch.profiler (the card's idle share); then again from genesis
+     with height 7's block carrying a tampered signature: the peer is
+     banned at height 6 and the sync still reaches 48;
+   - `pt_add_tiled`, off the node path as in the JAX package: the
+     op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
+     at 8192 lanes.
+5. Print the {"kernels": [...]} line (launches from the paths, times and
+   bounds measured in this run), a timing line with the catch-up sigs/s
+   and where the sync's time goes, the card's name and power limit, and
+   last {"ok": true, "device": {...}}.
 
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
@@ -40,19 +58,18 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
-import struct
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-LANES = 8192          # one blocksync tile (bench.py:154,211 defaults)
-VALIDATORS = 200
-MSG_LEN = 122         # vote sign-bytes
+LANES = 8192          # one blocksync flush (bench.py:154,211 defaults)
+VALIDATORS = 200      # BASELINE.json's set; bench.py:154
+BLOCKS = 48           # 9,600 signatures: two tiles of catch-up
+TILE = 40             # 40 x 200 = 8,000 lanes, one 8192-lane flush
 RAGGED = 200          # a lane count that divides no block of the kernels
 INT32_MAD_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x clock
 HBM_BYTES_PER_S = 3.35e12
@@ -68,6 +85,7 @@ MADS_FE_SQ = 36 * 2 + 8 * 2
 MADS_DECOMPRESS = (251 + 4) * MADS_FE_SQ + (11 + 8) * MADS_FE_MUL
 MADS_ADD = 9 * MADS_FE_MUL                      # add-2008-hwcd-3
 MADS_DBL = 4 * MADS_FE_SQ + 4 * MADS_FE_MUL     # dbl-2008-hwcd
+PT_BYTES = 4 * 16 * 4                           # one packed point
 
 
 def _median_ms(torch, fn, reps: int) -> float:
@@ -98,58 +116,49 @@ def _gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-class Signers:
-    """A validator set with RFC 8032 signing from precomputed keys (the
-    oracle's sign recomputes the public key per message)."""
+def make_chain(seed: int):
+    """The chain of every later phase, and the generator's app (its
+    final state is what a sync must reach)."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.engine.chain_gen import generate_chain
+    apps = []
 
-    def __init__(self, ref, seed: int, n: int):
-        rng = np.random.default_rng(seed)
-        self.ref = ref
-        self.keys = []
-        for _ in range(n):
-            sk = rng.bytes(32)
-            h = hashlib.sha512(sk).digest()
-            a = ref.clamp(h)
-            self.keys.append((sk, a, h[32:], ref.pubkey_from_seed(sk)))
+    def app_factory():
+        apps.append(KVStoreApplication())
+        return apps[-1]
 
-    def sign(self, v: int, msg: bytes) -> bytes:
-        ref = self.ref
-        _sk, a, prefix, pub = self.keys[v]
-        r = ref.sc_reduce(hashlib.sha512(prefix + msg).digest())
-        rb = ref.pt_compress(ref.pt_mul(r, ref.BASE))
-        k = ref.sc_reduce(hashlib.sha512(rb + pub + msg).digest())
-        return rb + ((r + k * a) % ref.L).to_bytes(32, "little")
+    chain = generate_chain(n_blocks=BLOCKS, n_validators=VALIDATORS,
+                           txs_per_block=2, seed=seed,
+                           app_factory=app_factory, device="cuda")
+    return chain, apps[0]
 
 
-def _vote_bytes(rng, height: int, v: int, block_hash: bytes) -> bytes:
-    """122 bytes shaped like a precommit's sign-bytes: type, height,
-    round, block hash, part-set hash, timestamp, chain id, validator."""
-    body = struct.pack("<BBqq", 0x08, 2, height, 0) + block_hash
-    body += hashlib.sha256(block_hash).digest()
-    body += struct.pack("<qi", 1_700_000_000 + height, v)
-    body += b"cometbft-tpu-smoke"
-    return body + rng.bytes(MSG_LEN - len(body))
-
-
-def make_tile(ref, seed: int, lanes: int, validators: int):
-    """`lanes` (pub, msg, sig) of consecutive commits of one validator
-    set: lane i is validator i % validators at height i // validators."""
-    rng = np.random.default_rng(seed + 1)
-    signers = Signers(ref, seed, validators)
+def tile_from_chain(ref, chain, lanes: int):
+    """The first `lanes` (pub, msg, sig) of the chain's commits, flattened
+    as the tile verifier marshals them. -> (tile, seconds the marshal
+    took: `marshal_commit`, which verify_tile runs for every commit)."""
+    from cometbft_tpu_torch.engine.blocksync import TileEntry, marshal_commit
     pubs, msgs, sigs = [], [], []
-    hashes = {}
-    for i in range(lanes):
-        h, v = 1000 + i // validators, i % validators
-        if h not in hashes:
-            hashes[h] = rng.bytes(32)
-        m = _vote_bytes(rng, h, v, hashes[h])
-        pubs.append(signers.keys[v][3])
-        msgs.append(m)
-        sigs.append(signers.sign(v, m))
-    sk0 = signers.keys[0][0]
-    if ref.sign(sk0, msgs[0]) != sigs[0]:
-        raise AssertionError("fast signer disagrees with ref_ed25519.sign")
-    return pubs, msgs, sigs
+    t0 = time.perf_counter()
+    for h in range(1, chain.max_height() + 1):
+        if len(pubs) >= lanes:
+            break
+        e = TileEntry(height=h, block=chain.blocks[h - 1],
+                      block_id=chain.block_ids[h - 1],
+                      valset=chain.valsets[h - 1],
+                      commit=chain.seen_commits[h - 1])
+        _e, rows, _needed = marshal_commit(chain.chain_id, e, pubs, msgs,
+                                           sigs)
+        if rows is None:
+            raise AssertionError(f"generated commit {h} does not marshal")
+    marshal_s = time.perf_counter() - t0
+    if len(pubs) < lanes:
+        raise AssertionError(f"the chain has {len(pubs)} lanes, < {lanes}")
+    key = chain.keys[chain.valsets[0].validators[0].address]
+    if ref.sign(key.seed, msgs[0]) != sigs[0]:
+        raise AssertionError("the cached-key signer disagrees with "
+                             "ref_ed25519.sign")
+    return (pubs[:lanes], msgs[:lanes], sigs[:lanes]), marshal_s
 
 
 def _edge_encodings(ref, encs, rng):
@@ -210,10 +219,27 @@ def _hold_window_sums(torch, pkg, args):
     return err, out
 
 
+def _hold_pt_add(torch, pkg, p, q):
+    """pt_add_tiled against its plain version, as group elements, limbs
+    in [0, 2^16). -> (error, kernel output)."""
+    cv, fe = pkg["cv"], pkg["fe"]
+    out = cv.pt_add_tiled(p, q)
+    plain = cv.pt_add_tiled_plain(p, q)
+    torch.cuda.synchronize()
+    if int(out.min()) < 0 or int(out.max()) >= 1 << 16:
+        raise AssertionError("pt_add_tiled limbs leave [0, 2^16)")
+    err = _point_err(torch, fe, cv.unpack_point(out.long()),
+                     cv.unpack_point(plain.long()))
+    if err:
+        raise AssertionError(f"pt_add_tiled sums differ, N={p.shape[-1]}")
+    return err, out
+
+
 def check_kernels(torch, pkg, tile, dev, report):
-    """Phase 2: each kernel against its plain version at N = LANES, and
-    the two per-lane kernels again at N = RAGGED, where the last block of
-    each is part empty and the kernel masks its edge."""
+    """Phase 3: each kernel against its plain version at N = LANES, and
+    the three per-lane kernels again at N = RAGGED, where the last block
+    of each is part empty and the kernel masks its edge. Returns the
+    point additions' inputs, which the A/B phase times."""
     cv, ed, fe, ped = pkg["cv"], pkg["ed"], pkg["fe"], pkg["ped"]
     ref = pkg["ref"]
     rng = np.random.default_rng(7)
@@ -267,6 +293,24 @@ def check_kernels(torch, pkg, tile, dev, report):
         "bound": _bound_ms(adds * MADS_ADD,
                            (2 * 64 + 96) * n * 4 + out.numel() * 4)}
 
+    # point additions: R points plus A points of other lanes, with the
+    # identity, P + (-P) and P + P in the first three lanes
+    p = r_pt.clone()
+    q = a_pt.roll(1, dims=-1).clone()
+    p[:, :, 0] = 0
+    p[1, 0, 0] = p[2, 0, 0] = 1
+    q[:, :, 1] = ped._neg_packed(p[:, :, 1:2])[:, :, 0]
+    q[:, :, 2] = p[:, :, 2]
+    add_args = (p.contiguous(), q.contiguous())
+    err, got = _hold_pt_add(torch, pkg, *add_args)
+    if not bool(ed.pt_is_identity(cv.unpack_point(got[:, :, 1:2].long()))):
+        raise AssertionError("pt_add_tiled: P + (-P) is not the identity")
+    err_r, _ = _hold_pt_add(torch, pkg,
+                            *(a[..., :RAGGED].contiguous() for a in add_args))
+    report["pt_add_tiled"] = {
+        "max_abs_err": max(err, err_r),
+        "bound": _bound_ms(n * MADS_ADD, 3 * n * PT_BYTES)}
+
     # epilogue: the clean tile cancels (True); a changed [S]B digit and an
     # uncancelled point in one window do not (False)
     b_tab = torch.as_tensor(ed.small_base_table(), device=dev)
@@ -301,6 +345,7 @@ def check_kernels(torch, pkg, tile, dev, report):
         "bound": _bound_ms(mads,
                            folded.numel() * 4 + b_tab.numel() * 4 + 64 * 4
                            + 1)}
+    return add_args
 
 
 def _device_kernels(torch, fn):
@@ -354,7 +399,7 @@ def breakdown(torch, pkg, tile, dev) -> dict:
 
 
 def run_main_path(torch, pkg, tile, e2e):
-    """Phase 3: the BatchVerifier seam on the card."""
+    """Phase 4, the seam: the BatchVerifier path on the card."""
     ref, ped = pkg["ref"], pkg["ped"]
     from cometbft_tpu_torch.crypto.batch import create_batch_verifier
     from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
@@ -413,9 +458,109 @@ def run_main_path(torch, pkg, tile, e2e):
     e2e["oracle_sample_lanes"] = len(sample)
 
 
+def run_pt_add_ab(torch, pkg, add_args, report) -> None:
+    """The pt_add_tiled path: the op-level A/B of tools/ab_pallas.py,
+    the kernel and its plain version timed on the same 8192 lanes."""
+    cv = pkg["cv"]
+    report["pt_add_tiled"]["ms"] = _median_ms(
+        torch, lambda: cv.pt_add_tiled(*add_args), 50)
+    report["pt_add_tiled"]["plain_ms"] = _median_ms(
+        torch, lambda: cv.pt_add_tiled_plain(*add_args), 5)
+
+
+def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
+                  profile=False) -> dict:
+    """One catch-up from genesis over the chain on the card, through
+    `BlocksyncReactor.sync`; checks the final state against the
+    generator's and returns the sync's figures, with the time spent in
+    each blocksync span. `profile` runs the sync under torch.profiler
+    and adds its kernel launches and device-busy seconds (the wall then
+    carries the profiler's cost)."""
+    from cometbft_tpu_torch import trace
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.db.kv import MemDB
+    from cometbft_tpu_torch.engine.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.engine.chain_gen import LocalChainSource
+    from cometbft_tpu_torch.pipeline.cache import (SigCache,
+                                                   reset_shared_cache)
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    ped = pkg["ped"]
+    # the generator's commit checks filled the process-wide cache; a
+    # sync that found every lane there would leave the card idle
+    reset_shared_cache()
+    app = KVStoreApplication()
+    app.init_chain(chain.chain_id, 1, [], b"")
+    src = LocalChainSource(chain, dict(corrupt or {}))
+    reactor = BlocksyncReactor(
+        BlockExecutor(app, device="cuda"), BlockStore(MemDB()), src,
+        chain.chain_id, tile_size=TILE, batch_size=LANES, cache=SigCache(),
+        device="cuda")
+    state = State.from_genesis(chain.genesis)
+    stats0 = dict(ped.STATS)
+    out: dict = {}
+
+    def sync():
+        out["state"] = reactor.sync(state)
+
+    _, recorder = trace.enable(seed=seed)
+    try:
+        if profile:
+            launches, busy_us, wall = _device_kernels(torch, sync)
+            out["profiled"] = {"kernel_launches": launches,
+                               "device_busy_s": busy_us / 1e6,
+                               "wall_s": wall,
+                               "idle_share": 1 - busy_us / 1e6 / wall}
+        else:
+            t0 = time.perf_counter()
+            sync()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = recorder.snapshot()
+    finally:
+        trace.disable()
+    state = out["state"]
+    span_s: dict = {}
+    for sp in spans:
+        span_s[sp["name"]] = span_s.get(sp["name"], 0.0) + \
+            (sp["t1"] - sp["t0"]) / 1e9
+    st = reactor.stats
+    if state.last_block_height != BLOCKS or st.blocks_applied != BLOCKS:
+        raise AssertionError(f"sync stopped at {state.last_block_height}, "
+                             f"{st}")
+    if state.app_hash != gen_app.last_app_hash or \
+            app.state != gen_app.state:
+        raise AssertionError("synced app state differs from the generator's")
+    if state.validators.hash() != \
+            chain.blocks[-1].header.next_validators_hash or \
+            state.last_block_id != chain.block_ids[-1]:
+        raise AssertionError("synced validators or last block id differ")
+    return {"wall_s": wall, "sigs_verified": st.sigs_verified,
+            "sigs_per_s": st.sigs_verified / wall,
+            "tiles_flushed": st.tiles_flushed,
+            "respeculations": st.respeculations, "banned": src.banned,
+            "rlc_pass": ped.STATS["rlc_pass"] - stats0["rlc_pass"],
+            "per_lane": ped.STATS["per_lane"] - stats0["per_lane"],
+            "span_s": span_s, **({"profiled": out["profiled"]}
+                                 if profile else {})}
+
+
+def _read_path(cv, path: str, kernels) -> dict:
+    """The launch counts of one path; every kernel of it must have run."""
+    launches = dict(cv.LAUNCHES)
+    if not all(launches[k] > 0 for k in kernels):
+        raise AssertionError(f"{path}: a kernel was not launched: "
+                             f"{launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
+    # generate_chain's own default; with it, the signature tampered at
+    # height 7 keeps a decodable R, so the RLC equation fails and the
+    # tile is attributed per lane
+    ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
 
     import torch
@@ -447,49 +592,99 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
     print(f"gpu: {gpu}", flush=True)
 
-    # the tile, from --seed
+    # phase 2: the chain, from --seed, and the seam's tile
     t0 = time.perf_counter()
-    tile = make_tile(ref, args.seed, LANES, VALIDATORS)
-    print(f"tile: {LANES} lanes, {VALIDATORS} validators, "
-          f"{time.perf_counter() - t0:.1f}s to sign", flush=True)
+    chain, gen_app = make_chain(args.seed)
+    gen_s = time.perf_counter() - t0
+    tile, marshal_s = tile_from_chain(ref, chain, LANES)
+    print(f"chain: {BLOCKS} blocks x {VALIDATORS} validators, "
+          f"{gen_s:.1f}s to generate; tile: its first {LANES} lanes",
+          flush=True)
 
-    # phase 2: kernels against their plain versions
+    # phase 3: kernels against their plain versions
     report: dict = {}
-    check_kernels(torch, pkg, tile, dev, report)
+    add_args = check_kernels(torch, pkg, tile, dev, report)
     print(f"kernels match their plain versions at N={LANES} (and N={RAGGED} "
-          "for decompression and window sums)", flush=True)
+          "for decompression, window sums and additions)", flush=True)
     where = breakdown(torch, pkg, tile, dev)
 
-    # phase 3: the main path, counts zeroed just before, read just after
+    # phase 4: the paths, counts zeroed just before each, read just after
+    rlc = ("pt_decompress_tiled", "rlc_window_sums", "rlc_epilogue")
     e2e: dict = {}
     cv.reset_launches()
     run_main_path(torch, pkg, tile, e2e)
-    launches = dict(cv.LAUNCHES)
-    if not all(launches[k] > 0 for k in launches):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    seam = _read_path(cv, "seam", rlc)
 
-    # phase 4: report
+    cv.reset_launches()
+    sync = run_blocksync(torch, pkg, chain, gen_app, args.seed)
+    launches = _read_path(cv, "blocksync", rlc)
+    if sync["tiles_flushed"] != 2 or sync["banned"] or not sync["rlc_pass"]:
+        raise AssertionError(f"clean sync: {sync}")
+    # the same sync again: twice more timed (the spread within one call),
+    # once under the profiler (the card's idle share over a sync)
+    sync["repeat_wall_s"] = [
+        run_blocksync(torch, pkg, chain, gen_app, args.seed)["wall_s"]
+        for _ in range(2)]
+    sync["profiled"] = run_blocksync(torch, pkg, chain, gen_app, args.seed,
+                                     profile=True)["profiled"]
+
+    s = chain.blocks[6].last_commit.signatures[0].signature
+    r_decodes = ref.pt_decompress(bytes([s[0] ^ 1]) + s[1:32]) is not None
+    cv.reset_launches()
+    bad = run_blocksync(torch, pkg, chain, gen_app, args.seed, {7: "sig"})
+    bad_launches = _read_path(cv, "blocksync, tampered", rlc)
+    if not bad["banned"] or bad["banned"][0] not in (6, 7):
+        raise AssertionError(f"tampered sync banned {bad['banned']}")
+    if r_decodes and not bad["per_lane"]:
+        raise AssertionError("the tampered tile was not attributed per lane")
+
+    cv.reset_launches()
+    run_pt_add_ab(torch, pkg, add_args, report)
+    ab = _read_path(cv, "pt_add_tiled A/B", ("pt_add_tiled",))
+
+    # phase 5: report
     meta = {
         "pt_decompress_tiled": ("pt_decompress.cu", 411),
         "rlc_window_sums": ("rlc_window_sums.cu", 351),
         "rlc_epilogue": ("rlc_epilogue.cu", 502),
+        "pt_add_tiled": ("pt_add.cu", 277),
     }
     kernels = []
     for name, (src, line) in meta.items():
         r = report[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"cometbft_tpu_torch/csrc/{src}",
             "replaces": f"cometbft_tpu/ops/pallas_verify.py:{line}",
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None})
+            "library_ms": None, "on_node_path": name in rlc,
+            "launches_seam": seam[name],
+            "launches_tampered_sync": bad_launches[name]}
+        if name == "pt_add_tiled":
+            row["launches"] = ab[name]      # its own phase: the A/B
+        kernels.append(row)
+    for fig in (sync, bad):
+        fig["verify_s"] = fig["span_s"].get("blocksync.verify", 0.0)
+        fig["fetch_s"] = fig["span_s"].get("blocksync.fetch", 0.0)
+        fig["apply_s"] = fig["span_s"].get("blocksync.apply", 0.0)
     print(json.dumps({"timing": {
         "kernels": {k: {"ms": report[k]["ms"],
                         "plain_ms": report[k]["plain_ms"]} for k in meta},
-        "e2e": e2e, "breakdown": where, "lanes": LANES, "build_s": build_s,
-        "canary": ped.canary_stats(), "gpu": gpu}}), flush=True)
+        "blocksync": {"clean": sync, "tampered": bad,
+                      "tampered_r_decodes": r_decodes},
+        "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e, "breakdown": where, "lanes": LANES,
+        "build_s": build_s, "canary": ped.canary_stats(), "gpu": gpu}}),
+        flush=True)
+    print(f"blocksync: {sync['sigs_per_s']:.1f} sigs/s catch-up "
+          f"({sync['sigs_verified']} sigs in {sync['wall_s']:.3f} s; "
+          f"verify_tile {sync['verify_s']:.3f} s, fetch "
+          f"{sync['fetch_s']:.3f} s, apply {sync['apply_s']:.3f} s; "
+          f"repeats {', '.join(f'{w:.3f}' for w in sync['repeat_wall_s'])}"
+          f" s; card idle "
+          f"{sync['profiled']['idle_share']:.3f} of a profiled sync), "
+          f"{gpu}")
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ attribution sound.
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Protocol, Tuple, runtime_checkable
 
 from . import ref_ed25519 as ref
@@ -73,11 +73,26 @@ class Ed25519PubKey:
 
 @dataclass(frozen=True)
 class Ed25519PrivKey:
+    """RFC 8032 signing key. The expanded key (clamped scalar, nonce
+    prefix, public key) is derived from the seed on first use and kept
+    on the key: `ref.sign` recomputes the public key, a full scalar
+    multiplication, for every message. Signatures are byte-identical
+    with `ref.sign`."""
     seed: bytes
+    _expanded: Optional[Tuple[int, bytes, bytes]] = field(
+        default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if len(self.seed) != 32:
             raise ValueError("ed25519 seed must be 32B")
+
+    def _expand(self) -> Tuple[int, bytes, bytes]:
+        if self._expanded is None:
+            h = hashlib.sha512(self.seed).digest()
+            a = ref.clamp(h)
+            pub = ref.pt_compress(ref.pt_mul(a, ref.BASE))
+            object.__setattr__(self, "_expanded", (a, h[32:], pub))
+        return self._expanded
 
     @classmethod
     def generate(cls, rng=None) -> "Ed25519PrivKey":
@@ -86,10 +101,14 @@ class Ed25519PrivKey:
                    else bytes(rng.randrange(256) for _ in range(32)))
 
     def sign(self, msg: bytes) -> bytes:
-        return ref.sign(self.seed, msg)
+        a, prefix, pub = self._expand()
+        r = ref.sc_reduce(hashlib.sha512(prefix + msg).digest())
+        rb = ref.pt_compress(ref.pt_mul(r, ref.BASE))
+        k = ref.sc_reduce(hashlib.sha512(rb + pub + msg).digest())
+        return rb + ((r + k * a) % ref.L).to_bytes(32, "little")
 
     def pub_key(self) -> Ed25519PubKey:
-        return Ed25519PubKey(ref.pubkey_from_seed(self.seed))
+        return Ed25519PubKey(self._expand()[2])
 
     def bytes_(self) -> bytes:
         return self.seed
@@ -135,3 +154,24 @@ class Ed25519BatchVerifier:
                            batch_size=self._batch_size, device=self._device)
         oks = [bool(v) for v in out]
         return all(oks), oks
+
+
+def privkey_from_type_bytes(key_type: str, raw: bytes) -> PrivKey:
+    """Private-key factory by wire type string (the decode side of
+    FilePV state files). The port carries ed25519 only."""
+    if key_type == ED25519_KEY_TYPE:
+        return Ed25519PrivKey(raw)
+    raise NotImplementedError(
+        f"{key_type!r} keys are not ported yet (ROADMAP.md Queue 1: "
+        "MixedBatchVerifier and the other key types)")
+
+
+def pubkey_from_type_bytes(key_type: str, raw: bytes) -> PubKey:
+    """Key factory by wire type string (reference
+    crypto/encoding/codec.go:119 PubKeyFromTypeAndBytes). The port
+    carries ed25519 only."""
+    if key_type == ED25519_KEY_TYPE:
+        return Ed25519PubKey(raw)
+    raise NotImplementedError(
+        f"{key_type!r} keys are not ported yet (ROADMAP.md Queue 1: "
+        "MixedBatchVerifier and the other key types)")

@@ -33,6 +33,7 @@ KERNELS = {
     "rlc_window_sums": ("cbt_rlc_window_sums",
                         (_P, _P, _P, _P, _P, _P, _I, _P)),
     "rlc_epilogue": ("cbt_rlc_epilogue", (_P, _P, _P, _P, _I, _P)),
+    "pt_add": ("cbt_pt_add", (_P, _P, _P, _I, _P)),
 }
 
 _LOCK = threading.Lock()

@@ -21,6 +21,9 @@ Kernels (sources in cometbft_tpu_torch/csrc/):
   (block, window).
 - `rlc_epilogue` (rlc_epilogue.cu): fold, combine, [S]B, Horner, cofactor,
   identity test; one verdict.
+- `pt_add_tiled` (pt_add.cu): complete point addition per lane. Off the
+  node path, as in the JAX package (its callers there are the op-level
+  A/B and profiling tools); `chip_smoke.py` holds and times it.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ R_WINDOWS = 32   # radix-16 digits of the 128-bit z_i
 N_WINDOWS = A_WINDOWS + R_WINDOWS
 
 LAUNCHES = {"pt_decompress_tiled": 0, "rlc_window_sums": 0,
-            "rlc_epilogue": 0}
+            "rlc_epilogue": 0, "pt_add_tiled": 0}
 
 
 def reset_launches() -> None:
@@ -218,3 +221,26 @@ def fold_partials(out: torch.Tensor) -> torch.Tensor:
         ident[2, 0] = 1
         folded = torch.cat([folded, ident], dim=-1)
     return folded.contiguous()
+
+
+# --- kernel 4: lane-wise complete addition ----------------------------------
+
+def pt_add_tiled_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Same contract as `pt_add_tiled`."""
+    return pack_point(ed.pt_add(unpack_point(p.to(torch.int64)),
+                                unpack_point(q.to(torch.int64))))
+
+
+def pt_add_tiled(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Complete addition (add-2008-hwcd-3) of (4, 16, N) packed points,
+    int32 limbs in [0, 2^16); any N. Returns (4, 16, N) int32 in the
+    same layout."""
+    if not _require_cuda(p, "pt_add_tiled"):
+        return pt_add_tiled_plain(p, q)
+    n = p.shape[-1]
+    _check("p", p, (4, 16, n), torch.int32, p.device)
+    _check("q", q, (4, 16, n), torch.int32, p.device)
+    out = torch.empty((4, 16, n), dtype=torch.int32, device=p.device)
+    _launch("pt_add", p.data_ptr(), q.data_ptr(), out.data_ptr(), n)
+    LAUNCHES["pt_add_tiled"] += 1
+    return out

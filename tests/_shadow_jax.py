@@ -11,8 +11,10 @@ so it runs as a subprocess:
 
 A job is a JOBS key, optionally tagged as "key@tag" to run one function
 on several inputs. Each job reads its inputs from IN.npz under
-"<job>.<arg>" and writes "<job>.out<i>" to OUT.npz. `start(...)` launches it from a test and
-returns a handle whose `result()` waits and loads the outputs.
+"<job>.<arg>" and writes "<job>.out<i>" to OUT.npz. `start_many(...)`
+launches one subprocess per group of jobs from a test, so slow jobs run
+in parallel, and returns a handle whose `result()` waits and loads the
+outputs.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ JOBS = {
                         ("a_pt", "r_pt", "t_dig", "z_dig")),
     "rlc_epilogue": ("pallas_verify", "rlc_epilogue_impl",
                      ("folded", "b_tab", "s_dig")),
+    "pt_add_tiled": ("pallas_verify", "pt_add_tiled", ("p", "q")),
     "verify_rlc_core_pallas": ("ed25519", "verify_rlc_core_pallas",
                                ("pub", "sig", "hblocks", "hnblocks", "z")),
     "verify_core": ("ed25519", "verify_core",
@@ -121,8 +124,27 @@ class Shadow:
         self._dir.cleanup()
 
 
-def start(inputs: dict, jobs) -> Shadow:
-    return Shadow(inputs, jobs)
+class Shadows:
+    """Several shadow subprocesses, started together so they run in
+    parallel; `result()` merges their outputs."""
+
+    def __init__(self, groups):
+        self._handles = [Shadow(inputs, jobs) for inputs, jobs in groups]
+
+    def result(self, timeout: float = 600) -> dict:
+        out = {}
+        for h in self._handles:
+            out.update(h.result(timeout))
+        return out
+
+    def close(self) -> None:
+        for h in self._handles:
+            h.close()
+
+
+def start_many(groups) -> Shadows:
+    """`groups`: (inputs, jobs) pairs, one subprocess each."""
+    return Shadows(groups)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,263 @@
+"""The port's blocksync catch-up (cometbft_tpu_torch/engine/blocksync.py and
+the host modules under it) held against the JAX package's, on the CPU.
+
+- The port's `generate_chain` gives the JAX package's chain byte for byte:
+  block hashes, block ids, encoded last commits, app hashes and validator
+  hashes (RFC 8032 signing is deterministic; every encoder is a copy).
+- `BlocksyncReactor.sync` reaches the same final state (height, app hash,
+  validators hash, last block id, the kvstore's contents), the same stats
+  and the same bans on both sides: a clean chain, a tampered signature at
+  height 7, tampered data at height 5, and a validator-set change. The
+  JAX side runs `batch_size=0`, its host per-signature path, so nothing
+  is jitted; the port runs `batch_size=64` on tiles of 9 heights × 8
+  validators, so its tiles reach the torch RLC path (`ops.ed25519.STATS`
+  shows it) and the tampered-signature tile is attributed per lane.
+- A source that keeps serving a corrupt block exhausts the retries with
+  BlockValidationError on both sides.
+- `TiledCommitVerifier.verify_tile` gives the same per-commit verdicts on
+  a tile mixing clean commits, a tampered signature, a wrong-height
+  commit, a malformed signature and an under-2/3 commit.
+- Unported branches raise NotImplementedError; device="cuda" raises
+  without a card.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from cometbft_tpu.abci.kvstore import KVStoreApplication as JApp
+from cometbft_tpu.crypto.keys import Ed25519PrivKey as JPriv
+from cometbft_tpu.db.kv import MemDB as JMemDB
+from cometbft_tpu.engine import blocksync as jbs
+from cometbft_tpu.engine import chain_gen as jcg
+from cometbft_tpu.state.execution import BlockExecutor as JExec
+from cometbft_tpu.state.execution import BlockValidationError as JBVE
+from cometbft_tpu.state.state import State as JState
+from cometbft_tpu.store.blockstore import BlockStore as JStore
+from cometbft_tpu.types.block import CommitSig as JCommitSig
+
+from cometbft_tpu_torch.abci.kvstore import KVStoreApplication as PApp
+from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey as PPriv
+from cometbft_tpu_torch.db.kv import MemDB as PMemDB
+from cometbft_tpu_torch.engine import blocksync as pbs
+from cometbft_tpu_torch.engine import chain_gen as pcg
+from cometbft_tpu_torch.ops import ed25519 as ped
+from cometbft_tpu_torch.state.execution import BlockExecutor as PExec
+from cometbft_tpu_torch.state.execution import BlockValidationError as PBVE
+from cometbft_tpu_torch.state.state import State as PState
+from cometbft_tpu_torch.store.blockstore import BlockStore as PStore
+from cometbft_tpu_torch.types.block import CommitSig as PCommitSig
+
+TILE = 9          # 9 heights x 8 validators: one corrupt commit leaves 64
+BATCH = 64        # the port's RLC bucket on the CPU
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Eager torch at 64 lanes is launch-bound on the CPU; one thread
+    runs it several times faster than a contended pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _val_tx(pub: bytes) -> bytes:
+    return b"val:" + pub.hex().encode() + b"!15"
+
+
+@pytest.fixture(scope="module")
+def chains():
+    """(jax, port) chain pairs, each built once: "main" is 12 blocks of 8
+    validators, "valset" the 4-validator chain of tests/test_blocksync.py
+    whose set changes at height 4."""
+    out = {"main": (jcg.generate_chain(n_blocks=12, n_validators=8, seed=1),
+                    pcg.generate_chain(n_blocks=12, n_validators=8, seed=1,
+                                       device="cpu"))}
+    jkey, pkey = JPriv(b"\x99" * 32), PPriv(b"\x99" * 32)
+    out["valset"] = (
+        jcg.generate_chain(n_blocks=10, n_validators=4, seed=3,
+                           val_tx_heights={4: _val_tx(
+                               jkey.pub_key().bytes_())},
+                           extra_keys=[jkey]),
+        pcg.generate_chain(n_blocks=10, n_validators=4, seed=3,
+                           val_tx_heights={4: _val_tx(
+                               pkey.pub_key().bytes_())},
+                           extra_keys=[pkey], device="cpu"))
+    return out
+
+
+def _sync(side, chain, corrupt=None, source_cls=None, max_retries=3):
+    """One fresh node synced from genesis. -> (state, stats, banned,
+    app)."""
+    if side == "jax":
+        app = JApp()
+        executor = JExec(app)
+        store = JStore(JMemDB())
+        state = JState.from_genesis(chain.genesis)
+        src = (source_cls or jcg.LocalChainSource)(chain, dict(corrupt or {}))
+        reactor = jbs.BlocksyncReactor(executor, store, src, chain.chain_id,
+                                       tile_size=TILE, batch_size=0,
+                                       max_retries=max_retries)
+    else:
+        app = PApp()
+        executor = PExec(app, device="cpu")
+        store = PStore(PMemDB())
+        state = PState.from_genesis(chain.genesis)
+        src = (source_cls or pcg.LocalChainSource)(chain, dict(corrupt or {}))
+        reactor = pbs.BlocksyncReactor(executor, store, src, chain.chain_id,
+                                       tile_size=TILE, batch_size=BATCH,
+                                       max_retries=max_retries,
+                                       device="cpu")
+    app.init_chain(chain.chain_id, 1, [], b"")
+    state = reactor.sync(state)
+    return state, reactor.stats, list(src.banned), app
+
+
+def test_chain_matches_jax_byte_for_byte(chains):
+    for jchain, pchain in chains.values():
+        assert pchain.chain_id == jchain.chain_id
+        assert len(pchain.blocks) == len(jchain.blocks)
+        for jb, pb, jid, pid, jc, pc in zip(
+                jchain.blocks, pchain.blocks, jchain.block_ids,
+                pchain.block_ids, jchain.seen_commits, pchain.seen_commits):
+            assert pb.hash() == jb.hash()
+            assert pid.encode() == jid.encode()
+            assert pb.encode() == jb.encode()
+            assert pb.last_commit.encode() == jb.last_commit.encode()
+            assert pb.header.app_hash == jb.header.app_hash
+            assert pb.header.validators_hash == jb.header.validators_hash
+            assert pc.encode() == jc.encode()
+
+
+@pytest.mark.parametrize("name,corrupt", [
+    ("main", None), ("main", {7: "sig"}), ("main", {5: "data"}),
+    ("valset", None)])
+def test_sync_matches_jax(chains, name, corrupt):
+    jchain, pchain = chains[name]
+    stats0 = dict(ped.STATS)
+    jst, jstats, jbanned, japp = _sync("jax", jchain, corrupt)
+    pst, pstats, pbanned, papp = _sync("port", pchain, corrupt)
+
+    assert pst.last_block_height == jst.last_block_height == \
+        jchain.max_height()
+    assert pst.app_hash == jst.app_hash
+    assert pst.validators.hash() == jst.validators.hash()
+    assert pst.last_block_id.encode() == jst.last_block_id.encode()
+    assert papp.state == japp.state
+    assert dataclasses.asdict(pstats) == dataclasses.asdict(jstats)
+    assert pbanned == jbanned
+    if corrupt == {7: "sig"}:
+        assert pbanned and pbanned[0] in (6, 7)
+    elif corrupt == {5: "data"}:
+        assert pbanned == [5]
+    else:
+        assert pbanned == []
+    if name == "valset":
+        assert pstats.respeculations >= 1
+        assert pst.validators.has_address(
+            PPriv(b"\x99" * 32).pub_key().address())
+    elif corrupt == {7: "sig"}:
+        # the first tile (64 lanes) fails its RLC equation on the
+        # tampered lane and is attributed per lane
+        assert ped.STATS["per_lane"] > stats0["per_lane"]
+    else:
+        assert ped.STATS["rlc_pass"] > stats0["rlc_pass"]
+
+
+def test_stubborn_source_exhausts_retries(chains):
+    jchain, pchain = chains["main"]
+
+    class JStubborn(jcg.LocalChainSource):
+        def ban(self, height):
+            self.banned.append(height)   # keeps serving corrupt data
+
+    class PStubborn(pcg.LocalChainSource):
+        def ban(self, height):
+            self.banned.append(height)
+
+    with pytest.raises(JBVE):
+        _sync("jax", jchain, {3: "sig"}, JStubborn, max_retries=2)
+    with pytest.raises(PBVE):
+        _sync("port", pchain, {3: "sig"}, PStubborn, max_retries=2)
+
+
+def _mixed_tile(chain, bs, commit_sig_cls):
+    """Entries for heights 1..10 of `chain`, with the commit of height 2
+    carrying a tampered s, 4 a wrong height, 6 a 63-byte signature, and
+    8 only five of eight signatures (under 2/3 of the power)."""
+    entries = []
+    for h in range(1, 11):
+        commit = chain.seen_commits[h - 1]
+        sigs = list(commit.signatures)
+        if h == 2:
+            s = sigs[3]
+            sigs[3] = commit_sig_cls(
+                s.block_id_flag, s.validator_address, s.timestamp,
+                s.signature[:40] + bytes([s.signature[40] ^ 1])
+                + s.signature[41:])
+        elif h == 6:
+            s = sigs[5]
+            sigs[5] = commit_sig_cls(s.block_id_flag, s.validator_address,
+                                     s.timestamp, s.signature[:63])
+        elif h == 8:
+            for i in (0, 2, 4):
+                sigs[i] = commit_sig_cls.absent()
+        commit = dataclasses.replace(commit, signatures=sigs)
+        if h == 4:
+            commit = dataclasses.replace(commit, height=5)
+        entries.append(bs.TileEntry(
+            height=h, block=chain.blocks[h - 1],
+            block_id=chain.block_ids[h - 1],
+            valset=chain.valsets[h - 1], commit=commit))
+    return entries
+
+
+def test_verify_tile_matches_jax(chains):
+    jchain, pchain = chains["main"]
+    jent = _mixed_tile(jchain, jbs, JCommitSig)
+    pent = _mixed_tile(pchain, pbs, PCommitSig)
+    jbs.TiledCommitVerifier(jchain.chain_id, batch_size=0).verify_tile(jent)
+    stats0 = dict(ped.STATS)
+    pbs.TiledCommitVerifier(pchain.chain_id, batch_size=BATCH,
+                            device="cpu").verify_tile(pent)
+    want = [True, False, True, False, True, False, True, False, True, True]
+    assert [e.commit_ok for e in jent] == want
+    assert [e.commit_ok for e in pent] == want
+    # 69 lanes: one chunk attributed per lane, one passed by RLC
+    assert ped.STATS["per_lane"] == stats0["per_lane"] + 1
+    assert ped.STATS["rlc_pass"] == stats0["rlc_pass"] + 1
+
+
+def test_unported_branches_raise(chains, monkeypatch):
+    _, pchain = chains["main"]
+    app = PApp()
+    executor = PExec(app, device="cpu")
+    with pytest.raises(NotImplementedError):
+        pbs.BlocksyncReactor(executor, PStore(PMemDB()),
+                             pcg.LocalChainSource(pchain), pchain.chain_id,
+                             pipeline_depth=4, device="cpu")
+    monkeypatch.setenv("COMETBFT_TPU_MESH_VERIFY", "1")
+    with pytest.raises(NotImplementedError):
+        pbs.verify_lanes([b"\x00" * 32] * 64, [b""] * 64, [b"\x00" * 64] * 64,
+                         BATCH, device="cpu")
+    with pytest.raises(NotImplementedError):
+        pcg.generate_chain(n_blocks=2, n_validators=2, aggregate=True,
+                           device="cpu")
+    with pytest.raises(NotImplementedError):
+        pcg.make_genesis(2, key_type="bls12_381")
+    agg = pchain.seen_commits[0].encode() + bytes([0x32, 1, 0])  # field 6
+    with pytest.raises(NotImplementedError):
+        type(pchain.seen_commits[0]).decode(agg)
+
+
+def test_cuda_requested_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present here")
+    with pytest.raises(RuntimeError):
+        PExec(PApp())
+    with pytest.raises(RuntimeError):
+        pbs.TiledCommitVerifier("c", batch_size=BATCH, device="cuda")
+    with pytest.raises(RuntimeError):
+        pcg.generate_chain(n_blocks=1, n_validators=1)

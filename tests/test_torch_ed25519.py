@@ -9,8 +9,10 @@ the crypto seam) on the CPU.
   prepared batches (carried across by `convert.batch_from_numpy`): same
   batch_ok, struct_ok and per-lane verdicts.
 - The five cases of tests/test_ed25519_verify.py run against the port.
-- The package imports neither jax nor cometbft_tpu, and device="cuda"
-  raises where there is no card.
+- `Ed25519PrivKey`, which keeps its expanded key, signs byte for byte as
+  `ref_ed25519.sign` does.
+- The package, blocksync and its host modules included, imports neither
+  jax nor cometbft_tpu, and device="cuda" raises where there is no card.
 """
 
 import ast
@@ -70,21 +72,30 @@ def _batches():
     return out
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Eager torch at a few lanes is launch-bound on the CPU; one thread
+    runs it faster than a pool contended by the shadow subprocesses."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def shadow():
+    """The JAX side; autouse, so its subprocesses start with the module's
+    first test and run while the port-side tests compute."""
     b = _batches()
-    inputs = {}
+    groups = []
     for job, tag, names in (
             ("verify_rlc_core_pallas@A", "A",
              ("pub", "sig", "hblocks", "hnblocks", "z")),
             ("verify_rlc_core_pallas@B", "B",
              ("pub", "sig", "hblocks", "hnblocks", "z")),
             ("verify_core@B", "B", ("pub", "sig", "hblocks", "hnblocks"))):
-        for n in names:
-            inputs[f"{job}.{n}"] = b[tag][n]
-    sh = _shadow_jax.start(inputs, ["verify_rlc_core_pallas@A",
-                                    "verify_rlc_core_pallas@B",
-                                    "verify_core@B"])
+        groups.append(({f"{job}.{n}": b[tag][n] for n in names}, [job]))
+    sh = _shadow_jax.start_many(groups)   # one subprocess a job
     yield sh
     sh.close()
 
@@ -196,6 +207,24 @@ def test_batch_verifier_seam():
     assert pk.verify_signature(msgs[0], sigs[0])
 
 
+def test_cached_key_signer_matches_ref_sign():
+    """Ed25519PrivKey keeps its expanded key; its signatures and public
+    key stay byte-identical with the oracle's, for the RFC 8032 vectors
+    and for random seeds and messages, on the first call and later."""
+    rng = np.random.default_rng(43)
+    cases = [(bytes.fromhex(sk), bytes.fromhex(m))
+             for sk, _pk, m, _sig in RFC8032]
+    cases += [(rng.bytes(32), rng.bytes(int(n)))
+              for n in rng.integers(0, 300, 6)]
+    for seed, msg in cases:
+        key = Ed25519PrivKey(seed)
+        for _ in range(2):
+            assert key.sign(msg) == ref.sign(seed, msg)
+        assert key.pub_key().bytes_() == ref.pubkey_from_seed(seed)
+        assert key == Ed25519PrivKey(seed)
+        assert hash(key) == hash(Ed25519PrivKey(seed))
+
+
 # --- isolation and device rules -----------------------------------------------
 
 def test_import_leaves_jax_and_reference_unloaded():
@@ -204,6 +233,15 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import cometbft_tpu_torch, cometbft_tpu_torch.convert\n"
         "import cometbft_tpu_torch.crypto.batch, cometbft_tpu_torch.crypto.keys\n"
         "import cometbft_tpu_torch.ops.ed25519, cometbft_tpu_torch.ops._build\n"
+        "import cometbft_tpu_torch.engine.blocksync\n"
+        "import cometbft_tpu_torch.engine.chain_gen\n"
+        "import cometbft_tpu_torch.types, cometbft_tpu_torch.types.evidence\n"
+        "import cometbft_tpu_torch.types.validation\n"
+        "import cometbft_tpu_torch.state, cometbft_tpu_torch.store\n"
+        "import cometbft_tpu_torch.db, cometbft_tpu_torch.pipeline\n"
+        "import cometbft_tpu_torch.abci, cometbft_tpu_torch.ingest\n"
+        "import cometbft_tpu_torch.trace, cometbft_tpu_torch.libs.fail\n"
+        "import cometbft_tpu_torch.crypto.merkle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cometbft_tpu' or m.startswith('cometbft_tpu.')]\n"
         "assert not bad, bad\n")

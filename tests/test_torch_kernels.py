@@ -1,13 +1,13 @@
-"""The port's three kernel wrappers (cometbft_tpu_torch/ops/cuda_verify.py)
+"""The port's four kernel wrappers (cometbft_tpu_torch/ops/cuda_verify.py)
 held against the Pallas kernels they replace.
 
 On the CPU each wrapper runs its plain torch version. The JAX side runs
 the real Pallas kernel bodies (`pt_decompress_tiled_impl`,
-`rlc_window_sums_impl`, `rlc_epilogue_impl`) on the exact-integer shadow
-backend of tools/interval_fuzz.py in one subprocess, at TILE=8, started
-by a module fixture so it runs while the port side computes. Comparison
-is exact: validity flags, points mod p, window sums as group elements,
-verdicts.
+`rlc_window_sums_impl`, `rlc_epilogue_impl`, `pt_add_tiled`) on the
+exact-integer shadow backend of tools/interval_fuzz.py in subprocesses,
+at TILE=8, started together by a module fixture so they run while the
+port side computes. Comparison is exact: validity flags, points mod p, window sums
+and sums of points as group elements, verdicts.
 
 `test_kernels_match_plain_on_card` needs a CUDA card and skips without
 one; on the card it holds each CUDA kernel against its plain version.
@@ -27,6 +27,7 @@ P = ref.P
 N_DEC = 16
 N_WS = 16
 M_EP = 8
+N_ADD = 16     # as tools/interval_fuzz.py runs pt_add_tiled (N % TILE == 0)
 
 
 def _enc_inputs():
@@ -49,6 +50,26 @@ def _rand_packed(rng, n):
         for c, v in zip(cs, (xa, ya, 1, xa * ya % P)):
             c.append(limbs_from_int(v))
     return np.stack([np.stack(c, axis=-1) for c in cs]).astype(np.int32)
+
+
+def _add_inputs(n=N_ADD, seed=22):
+    """(p, q) packed (4, 16, n): random multiples of B, with lane 0 the
+    identity plus a point, lane 1 a point plus its negation, lane 2 a
+    point plus itself, and lane 3 an x limb-encoded as x + p (limbs in
+    [0, 2^16) may hold any value below 2^256)."""
+    rng = np.random.default_rng(seed)
+    p, q = _rand_packed(rng, n), _rand_packed(rng, n)
+    p[:, :, 0] = 0
+    p[1, 0, 0] = p[2, 0, 0] = 1                       # identity
+    q[:, :, 1] = p[:, :, 1]
+    for c in (0, 3):                                  # -P: negate x and t
+        v = sum(int(l) << (16 * k) for k, l in enumerate(p[c, :, 1]))
+        q[c, :, 1] = limbs_from_int((P - v) % P)
+    q[:, :, 2] = p[:, :, 2]
+    x = sum(int(l) << (16 * k) for k, l in enumerate(p[0, :, 3]))
+    if x + P < 2**256:
+        p[0, :, 3] = limbs_from_int(x + P)
+    return p, q
 
 
 def _ws_inputs():
@@ -93,17 +114,22 @@ def _epilogue_cases():
 
 @pytest.fixture(scope="module")
 def shadow():
+    """The JAX side, one subprocess per job group so they run in
+    parallel (an epilogue case alone takes about 25 s on the shadow
+    backend)."""
     inputs = {"pt_decompress_tiled.enc": _enc_inputs()}
     inputs.update({f"rlc_window_sums.{k}": v
                    for k, v in _ws_inputs().items()})
-    jobs = ["pt_decompress_tiled", "rlc_window_sums"]
+    groups = [(inputs, ["pt_decompress_tiled", "rlc_window_sums"])]
+    p, q = _add_inputs()
+    groups.append(({"pt_add_tiled.p": p, "pt_add_tiled.q": q},
+                   ["pt_add_tiled"]))
     for name, folded, sdig, _ in _epilogue_cases():
         job = f"rlc_epilogue@{name}"
-        inputs[f"{job}.folded"] = folded
-        inputs[f"{job}.b_tab"] = ted.small_base_table()
-        inputs[f"{job}.s_dig"] = sdig
-        jobs.append(job)
-    sh = _shadow_jax.start(inputs, jobs)
+        groups.append(({f"{job}.folded": folded,
+                        f"{job}.b_tab": ted.small_base_table(),
+                        f"{job}.s_dig": sdig}, [job]))
+    sh = _shadow_jax.start_many(groups)
     yield sh
     sh.close()
 
@@ -181,12 +207,31 @@ def test_epilogue_plain_matches_pallas(shadow):
                         b_tab, torch.zeros((64,), dtype=torch.int32))
 
 
+def test_pt_add_plain_matches_pallas(shadow):
+    p, q = _add_inputs()
+    got = cv.pt_add_tiled(torch.as_tensor(p), torch.as_tensor(q))
+    assert got.dtype == torch.int32 and got.shape == (4, 16, N_ADD)
+    assert int(got.min()) >= 0 and int(got.max()) < 2**16
+    want = shadow.result()["pt_add_tiled.out0"]
+    g, w = cv.unpack_point(got.long()), cv.unpack_point(torch.as_tensor(want))
+    assert ted.pt_eq(g, w).all()
+    assert bool(ted.pt_is_identity(g)[1])             # P + (-P)
+    for i in (0, 2, 3):                               # against the oracle
+        def pt(a):
+            return tuple(sum(int(l) << (16 * k) for k, l in
+                             enumerate(a[c, :, i])) % P for c in range(4))
+        assert ref.pt_eq(pt(got.numpy()), ref.pt_add(pt(p), pt(q)))
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for a CPU tensor; any other
     device launches the kernel or raises, never falls back."""
     enc = torch.zeros((32, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         cv.pt_decompress_tiled(enc)
+    pt = torch.zeros((4, 16, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        cv.pt_add_tiled(pt, pt)
 
 
 @pytest.mark.cuda
@@ -219,3 +264,10 @@ def test_kernels_match_plain_on_card():
                 torch.as_tensor(sdig, device=dev))
         assert bool(cv.rlc_epilogue(*args)) == \
             bool(cv.rlc_epilogue_plain(*args)) == expect, name
+    for n in (8, 200):
+        p, q = (torch.as_tensor(x, device=dev) for x in _add_inputs(n, n))
+        got = cv.pt_add_tiled(p, q)
+        assert int(got.min()) >= 0 and int(got.max()) < 2**16
+        assert ted.pt_eq(cv.unpack_point(got.long()),
+                         cv.unpack_point(cv.pt_add_tiled_plain(p, q)
+                                         .long())).all()
