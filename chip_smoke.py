@@ -21,11 +21,16 @@ Phases; any failure exits non-zero:
    main path's shapes (8192 lanes): decompression on real and edge
    encodings (validity exact, points equal mod p), window sums per window
    as group elements, epilogue verdicts on cancelling and non-cancelling
-   inputs, point additions as group elements (identity, P + (-P) and
-   P + P lanes included); decompression, window sums and additions again
-   at 200 lanes, a count that divides none of their blocks, so each
-   kernel's masking of its ragged edge runs. Integers allow no tolerance:
-   every error must be 0. Then time where a flush goes: the host marshal,
+   inputs (the clean tile, a changed [S]B digit, a loose point, and a
+   Horner case where every window holds a point and only the whole
+   radix-16 Horner cancels them, with its one-digit variant), point
+   additions as group elements (identity, P + (-P) and P + P lanes
+   included); decompression, window sums and additions again at 200
+   lanes, a count that divides none of their blocks, so each kernel's
+   masking of its ragged edge runs, and window sums at 3,000 lanes (three
+   chunks, the last part empty). Integers allow no tolerance: every error
+   must be 0. The epilogue is timed at the main path's M and at M = 128.
+   Then time where a flush goes: the host marshal,
    SHA-512, the device part of the RLC verify, and (under torch.profiler)
    the kernel launches and device-busy time of the RLC verify and of the
    per-lane verify.
@@ -47,7 +52,10 @@ Phases; any failure exits non-zero:
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
 5. Print the {"kernels": [...]} line (launches from the paths, times and
-   bounds measured in this run), a timing line with the catch-up sigs/s
+   bounds measured in this run, and for the two RLC point kernels the
+   dependent chain of field products of the busiest thread, beside that
+   of the design each replaced; `rlc_window_sums` counts two launches a
+   call), a timing line with the catch-up sigs/s
    and where the sync's time goes, the card's name and power limit, and
    last {"ok": true, "device": {...}}.
 
@@ -60,9 +68,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -71,6 +81,7 @@ VALIDATORS = 200      # BASELINE.json's set; bench.py:154
 BLOCKS = 48           # 9,600 signatures: two tiles of catch-up
 TILE = 40             # 40 x 200 = 8,000 lanes, one 8192-lane flush
 RAGGED = 200          # a lane count that divides no block of the kernels
+CHUNKS = 3000         # window sums over three chunks, the last part empty
 INT32_MAD_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x clock
 HBM_BYTES_PER_S = 3.35e12
 # The least int32 multiply-adds per field operation: a 32x32->64-bit
@@ -86,6 +97,14 @@ MADS_DECOMPRESS = (251 + 4) * MADS_FE_SQ + (11 + 8) * MADS_FE_MUL
 MADS_ADD = 9 * MADS_FE_MUL                      # add-2008-hwcd-3
 MADS_DBL = 4 * MADS_FE_SQ + 4 * MADS_FE_MUL     # dbl-2008-hwcd
 PT_BYTES = 4 * 16 * 4                           # one packed point
+# each wrapper's source in cometbft_tpu_torch/csrc/, and the line of the
+# Pallas kernel it replaces in cometbft_tpu/ops/pallas_verify.py
+KERNELS = {
+    "pt_decompress_tiled": ("pt_decompress.cu", 411),
+    "rlc_window_sums": ("rlc_window_sums.cu", 351),
+    "rlc_epilogue": ("rlc_epilogue.cu", 502),
+    "pt_add_tiled": ("pt_add.cu", 277),
+}
 
 
 def _median_ms(torch, fn, reps: int) -> float:
@@ -281,16 +300,20 @@ def check_kernels(torch, pkg, tile, dev, report):
                pkg["sc"].sc_nibbles(z16)[:ped.ZWIN].to(torch.int32)
                .contiguous())
     err, out = _hold_window_sums(torch, pkg, ws_args)
-    err_r, _ = _hold_window_sums(
-        torch, pkg, tuple(a[..., :RAGGED].contiguous() for a in ws_args))
+    err_r = max(_hold_window_sums(
+        torch, pkg, tuple(a[..., :k].contiguous() for a in ws_args))[0]
+        for k in (CHUNKS, RAGGED))
+    # the least work: each table 7 doublings (even entries) and 7
+    # additions (odd ones), then N - G additions per window
     g = cv.n_tiles(n)
-    adds = 28 * n + cv.N_WINDOWS * (cv.LANE_TILE - 1) * g
+    adds = 14 * n + cv.N_WINDOWS * (n - g)
+    dbls = 14 * n
     report["rlc_window_sums"] = {
         "max_abs_err": max(err, err_r),
         "ms": _median_ms(torch, lambda: cv.rlc_window_sums(*ws_args), 10),
         "plain_ms": _median_ms(torch,
                                lambda: cv.rlc_window_sums_plain(*ws_args), 3),
-        "bound": _bound_ms(adds * MADS_ADD,
+        "bound": _bound_ms(adds * MADS_ADD + dbls * MADS_DBL,
                            (2 * 64 + 96) * n * 4 + out.numel() * 4)}
 
     # point additions: R points plus A points of other lanes, with the
@@ -312,20 +335,18 @@ def check_kernels(torch, pkg, tile, dev, report):
         "bound": _bound_ms(n * MADS_ADD, 3 * n * PT_BYTES)}
 
     # epilogue: the clean tile cancels (True); a changed [S]B digit and an
-    # uncancelled point in one window do not (False)
+    # uncancelled point in one window do not (False); the Horner case
+    # cancels only through every window (True), its variant does not
     b_tab = torch.as_tensor(ed.small_base_table(), device=dev)
     folded = cv.fold_partials(out)
+    m = folded.shape[-1]
     sdig = pkg["sc"].sc_nibbles(s_sum).to(torch.int32).contiguous()
     sdig_bad = sdig.clone()
     sdig_bad[0] = (sdig_bad[0] + 1) % 16
     loose = folded.clone()      # [12345]B (prime order) into one partial
-    x, y, zz, _ = ref.pt_mul(12345, ref.BASE)
-    zi = pow(zz, ref.P - 2, ref.P)
-    xa, ya = x * zi % ref.P, y * zi % ref.P
-    for c, v in enumerate((xa, ya, 1, xa * ya % ref.P)):
-        loose[c, :, 9, 0] = torch.as_tensor(fe.limbs_from_int(v), device=dev)
+    _set_point(torch, pkg, loose, 9, 0, 12345, dev)
     cases = [(folded, sdig, True), (folded, sdig_bad, False),
-             (loose, sdig, False)]
+             (loose, sdig, False), *_horner_cases(torch, pkg, m, dev)]
     err = 0
     for f, sd, want in cases:
         got = bool(cv.rlc_epilogue(f, b_tab, sd))
@@ -333,19 +354,65 @@ def check_kernels(torch, pkg, tile, dev, report):
         err = max(err, abs(int(got) - int(plain)))
         if not got == plain == want:
             raise AssertionError(f"rlc_epilogue {got}/{plain}, want {want}")
-    m = folded.shape[-1]
-    mads = ((cv.N_WINDOWS * (m - 1) + 32 + 64 + 63) * MADS_ADD
-            + (63 * 4 + 3) * MADS_DBL)
+    # like for like with M = 128: the same partials, identity points after
+    m128 = torch.cat([folded, _identity_partials(torch, 128 - m, dev)], -1)
+    if not bool(cv.rlc_epilogue(m128, b_tab, sdig)):
+        raise AssertionError("rlc_epilogue at M = 128 rejects the clean tile")
     report["rlc_epilogue"] = {
-        "max_abs_err": err,
+        "max_abs_err": err, "m": m,
         "ms": _median_ms(torch, lambda: cv.rlc_epilogue(folded, b_tab, sdig),
                          10),
         "plain_ms": _median_ms(
             torch, lambda: cv.rlc_epilogue_plain(folded, b_tab, sdig), 2),
-        "bound": _bound_ms(mads,
-                           folded.numel() * 4 + b_tab.numel() * 4 + 64 * 4
-                           + 1)}
+        "bound": _epilogue_bound(m),
+        "m128": {"ms": _median_ms(
+            torch, lambda: cv.rlc_epilogue(m128, b_tab, sdig), 10),
+            "bound_ms": _epilogue_bound(128)[0]}}
+    per_call_launches(torch, cv, {
+        "pt_decompress_tiled": lambda: cv.pt_decompress_tiled(enc),
+        "rlc_window_sums": lambda: cv.rlc_window_sums(*ws_args),
+        "rlc_epilogue": lambda: cv.rlc_epilogue(folded, b_tab, sdig),
+        "pt_add_tiled": lambda: cv.pt_add_tiled(*add_args)}, report)
     return add_args
+
+
+def _epilogue_bound(m: int) -> tuple:
+    mads = ((96 * (m - 1) + 32 + 64 + 63) * MADS_ADD
+            + (63 * 4 + 3) * MADS_DBL)
+    return _bound_ms(mads, (4 * 16 * 96 * m + 16 * 64 + 64) * 4 + 1)
+
+
+def _identity_partials(torch, m: int, dev):
+    ident = torch.zeros((4, 16, 96, m), dtype=torch.int32, device=dev)
+    ident[1, 0] = 1
+    ident[2, 0] = 1
+    return ident
+
+
+def _set_point(torch, pkg, folded, w, j, k, dev, neg=False):
+    """Partial j of window w := [k]B (or -[k]B), affine."""
+    ref, fe = pkg["ref"], pkg["fe"]
+    x, y, z, _ = ref.pt_mul(k, ref.BASE)
+    zi = pow(z, ref.P - 2, ref.P)
+    xa, ya = x * zi % ref.P, y * zi % ref.P
+    if neg:
+        xa = (ref.P - xa) % ref.P
+    for c, v in enumerate((xa, ya, 1, xa * ya % ref.P)):
+        folded[c, :, w, j] = torch.as_tensor(fe.limbs_from_int(v), device=dev)
+
+
+def _horner_cases(torch, pkg, m: int, dev):
+    """64 seeded nonzero digits d_i as the [S]B digits and -[S]B in
+    window 0, S = sum 16^i d_i mod L: True only through the whole Horner;
+    with digit 40 changed, False."""
+    d = np.random.default_rng(31).integers(1, 16, 64)
+    s = sum(int(x) << (4 * i) for i, x in enumerate(d)) % pkg["ref"].L
+    folded = _identity_partials(torch, m, dev)
+    _set_point(torch, pkg, folded, 0, m - 1, s, dev, neg=True)
+    bad = d.copy()
+    bad[40] = bad[40] % 15 + 1
+    return [(folded, torch.as_tensor(x, dtype=torch.int32, device=dev), want)
+            for x, want in ((d, True), (bad, False))]
 
 
 def _device_kernels(torch, fn):
@@ -362,6 +429,38 @@ def _device_kernels(torch, fn):
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return len(dev), float(sum(e.time_range.elapsed_us() for e in dev)), wall
+
+
+def per_call_launches(torch, cv, calls: dict, report) -> None:
+    """One call of each wrapper, counted twice: by its launch count, read
+    after the call, and by torch.profiler's device events named after a
+    `__global__` function of its source. One profiler session holds all
+    the calls. The two counts must agree."""
+    from torch.profiler import ProfilerActivity, profile
+    csrc = Path(__file__).resolve().parent / "cometbft_tpu_torch" / "csrc"
+    counted = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls.items():
+            cv.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            counted[name] = cv.LAUNCHES[name]
+    seen = [re.match(r"(?:void\s+)?(\w*)", e.name or "").group(1)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for name in calls:
+        fns = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                             r"\([^)]*\)\s*)?(\w+)",
+                             (csrc / KERNELS[name][0]).read_text()))
+        profiled = sum(1 for k in seen if k in fns)
+        if profiled != counted[name]:
+            raise AssertionError(
+                f"{name}: one call counts {counted[name]} launches, the "
+                f"profiler saw {profiled} of {sorted(fns)} among "
+                f"{sorted(set(seen))}")
+        report[name]["launches_per_call"] = counted[name]
+        report[name]["launches_per_call_profiled"] = profiled
 
 
 def breakdown(torch, pkg, tile, dev) -> dict:
@@ -605,7 +704,8 @@ def main(argv=None) -> int:
     report: dict = {}
     add_args = check_kernels(torch, pkg, tile, dev, report)
     print(f"kernels match their plain versions at N={LANES} (and N={RAGGED} "
-          "for decompression, window sums and additions)", flush=True)
+          f"for decompression, window sums and additions, N={CHUNKS} for "
+          "window sums)", flush=True)
     where = breakdown(torch, pkg, tile, dev)
 
     # phase 4: the paths, counts zeroed just before each, read just after
@@ -643,14 +743,8 @@ def main(argv=None) -> int:
     ab = _read_path(cv, "pt_add_tiled A/B", ("pt_add_tiled",))
 
     # phase 5: report
-    meta = {
-        "pt_decompress_tiled": ("pt_decompress.cu", 411),
-        "rlc_window_sums": ("rlc_window_sums.cu", 351),
-        "rlc_epilogue": ("rlc_epilogue.cu", 502),
-        "pt_add_tiled": ("pt_add.cu", 277),
-    }
     kernels = []
-    for name, (src, line) in meta.items():
+    for name, (src, line) in KERNELS.items():
         r = report[name]
         row = {
             "name": name, "route": "cuda",
@@ -661,7 +755,10 @@ def main(argv=None) -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None, "on_node_path": name in rlc,
             "launches_seam": seam[name],
-            "launches_tampered_sync": bad_launches[name]}
+            "launches_tampered_sync": bad_launches[name],
+            **{k: r[k] for k in ("launches_per_call",
+                                 "launches_per_call_profiled", "m", "m128")
+               if k in r}}
         if name == "pt_add_tiled":
             row["launches"] = ab[name]      # its own phase: the A/B
         kernels.append(row)
@@ -671,7 +768,7 @@ def main(argv=None) -> int:
         fig["apply_s"] = fig["span_s"].get("blocksync.apply", 0.0)
     print(json.dumps({"timing": {
         "kernels": {k: {"ms": report[k]["ms"],
-                        "plain_ms": report[k]["plain_ms"]} for k in meta},
+                        "plain_ms": report[k]["plain_ms"]} for k in KERNELS},
         "blocksync": {"clean": sync, "tampered": bad,
                       "tampered_r_decodes": r_decodes},
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e, "breakdown": where, "lanes": LANES,

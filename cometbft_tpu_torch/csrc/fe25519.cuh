@@ -3,8 +3,9 @@
 // Inside a kernel a field element is 8 little-endian 32-bit words
 // (radix 2^32), any value in [0, 2^256) standing for its residue mod p.
 // A product is a 8x8 schoolbook of 32x32->64-bit multiply-adds (64
-// IMAD.WIDE), folded by 2^256 = 38 (mod p). Every carry is an explicit
-// 64-bit accumulator, so no bound depends on lazy limbs:
+// IMAD.WIDE), a squaring the 36 distinct ones (28 cross products doubled
+// by a shift, 8 squares); both fold by 2^256 = 38 (mod p). Every carry
+// is an explicit 64-bit accumulator, so no bound depends on lazy limbs:
 //   - mul:  c + a_i*b_j + t <= (2^32-1)^2 + 2(2^32-1) = 2^64 - 1;
 //   - add:  a carry out of 2^256 is folded as +38; a second carry can
 //           only leave a value < 38 in word 0, so the last +38 cannot
@@ -115,21 +116,8 @@ CBT_FN fe fe_sub(const fe& a, const fe& b) {
 
 CBT_FN fe fe_neg(const fe& a) { return fe_sub(fe_small(0), a); }
 
-CBT_FN fe fe_mul(const fe& a, const fe& b) {
-  uint32_t t[16];
-#pragma unroll
-  for (int i = 0; i < 16; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      c += (uint64_t)a.w[i] * b.w[j] + t[i + j];
-      t[i + j] = (uint32_t)c;
-      c >>= 32;
-    }
-    t[i + 8] = (uint32_t)c;
-  }
+// 512-bit t (16 words) -> 256 bits, by 2^256 = 38 (mod p).
+CBT_FN fe fe_reduce512(const uint32_t* t) {
   fe r;
   uint64_t c = 0;
 #pragma unroll
@@ -149,7 +137,57 @@ CBT_FN fe fe_mul(const fe& a, const fe& b) {
   return r;
 }
 
-CBT_FN fe fe_sq(const fe& a) { return fe_mul(a, a); }
+CBT_FN fe fe_mul(const fe& a, const fe& b) {
+  uint32_t t[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      c += (uint64_t)a.w[i] * b.w[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+  return fe_reduce512(t);
+}
+
+// a^2: the 28 cross products a_i a_j (i < j) once, doubled by a shift
+// (their sum is below 2^511), then the 8 squares a_i^2 on the diagonal:
+// 36 products where fe_mul(a, a) pays 64. The carries keep fe_mul's
+// bound: c + a_i*a_j + t <= 2^64 - 1.
+CBT_FN fe fe_sq(const fe& a) {
+  uint32_t t[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; j++) {
+      c += (uint64_t)a.w[i] * a.w[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+#pragma unroll
+  for (int i = 15; i > 0; i--) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    c += (uint64_t)a.w[i] * a.w[i] + t[2 * i];
+    t[2 * i] = (uint32_t)c;
+    c >>= 32;
+    c += t[2 * i + 1];
+    t[2 * i + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  return fe_reduce512(t);
+}
 
 CBT_FN fe fe_nsq(fe x, int n) {
   for (int i = 0; i < n; i++) x = fe_sq(x);
@@ -368,15 +406,4 @@ CBT_FN bool ge_decompress(const int32_t* enc, long stride, ge* out) {
   out->z = one;
   out->t = fe_mul(x, y);
   return ok_direct || ok_twisted;
-}
-
-// [j]P for j = 0..15 into scratch entries (entry j at base + j * 32 * stride).
-CBT_FN void ge_build_table(const ge& p, uint32_t* base, long stride) {
-  ge_store_words(base, stride, ge_identity());
-  ge_store_words(base + 32 * stride, stride, p);
-  ge acc = p;
-  for (int j = 2; j < 16; j++) {
-    acc = ge_add(acc, p);
-    ge_store_words(base + (long)j * 32 * stride, stride, acc);
-  }
 }

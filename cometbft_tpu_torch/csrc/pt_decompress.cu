@@ -7,8 +7,8 @@
 // 251 of fe_pow2523's ref10 chain, 4 in the decode) and 19 or 20 field
 // multiplications, against 388 bytes moved (32 int32 bytes in, a (4, 16)
 // int32 point and a flag out). A multiplication is 64 32x32->64-bit
-// multiply-adds; a squaring needs only its 36 distinct products, but
-// fe_sq here is fe_mul(a, a) and pays all 64.
+// multiply-adds; a squaring needs only its 36 distinct products, and
+// fe_sq pays just those.
 //
 // Design: the whole chain stays in registers; lanes are independent, so
 // a block is just 128 consecutive lanes and the grid covers the ragged

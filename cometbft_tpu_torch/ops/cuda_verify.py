@@ -16,11 +16,13 @@ else), so a run can show that its main path went through the kernels.
 
 Kernels (sources in cometbft_tpu_torch/csrc/):
 - `pt_decompress_tiled` (pt_decompress.cu): ZIP-215 decode per lane.
-- `rlc_window_sums` (rlc_window_sums.cu): per-lane tables of -A and -R,
-  digit selection, a tree over each 64-lane block; one partial point per
-  (block, window).
-- `rlc_epilogue` (rlc_epilogue.cu): fold, combine, [S]B, Horner, cofactor,
-  identity test; one verdict.
+- `rlc_window_sums` (rlc_window_sums.cu): two launches per call, so it
+  counts 2. The first builds the per-lane tables of -A and -R; the second
+  selects by digit and sums each 1024-lane chunk over a (chunk, window)
+  grid; one partial point per (chunk, window).
+- `rlc_epilogue` (rlc_epilogue.cu): fold, combine, [S]B, a Horner whose
+  point operations are spread over a 4-lane group, cofactor, identity
+  test; one verdict.
 - `pt_add_tiled` (pt_add.cu): complete point addition per lane. Off the
   node path, as in the JAX package (its callers there are the op-level
   A/B and profiling tools); `chip_smoke.py` holds and times it.
@@ -34,8 +36,8 @@ from . import _build
 from . import edwards as ed
 from .field import fe_carry
 
-LANE_TILE = 64   # lanes per block of rlc_window_sums (WS_LANES in the .cu)
-TAIL = 1         # partials left per (block, window): the block tree goes to 1
+LANE_TILE = 1024  # lanes per partial of rlc_window_sums (WS_CHUNK in the .cu)
+TAIL = 1          # partials left per (chunk, window): the chunk sums to 1
 A_WINDOWS = 64   # radix-16 digits of t_i = z_i * k_i (256-bit)
 R_WINDOWS = 32   # radix-16 digits of the 128-bit z_i
 N_WINDOWS = A_WINDOWS + R_WINDOWS
@@ -117,28 +119,29 @@ def n_tiles(n: int) -> int:
 def rlc_window_sums_plain(a_pt: torch.Tensor, r_pt: torch.Tensor,
                           t_dig: torch.Tensor, z_dig: torch.Tensor
                           ) -> torch.Tensor:
-    """Same contract as `rlc_window_sums`. Lanes past N are identity
-    points; each 64-lane tile's lanes are summed per window."""
+    """Same contract as `rlc_window_sums`: each LANE_TILE-lane chunk's
+    lanes are summed per window. The last chunk sums only the lanes it
+    has, which is what the kernel's identity points past N come to."""
     n = a_pt.shape[-1]
-    g = n_tiles(n)
-    pad = g * LANE_TILE - n
-
-    def padded(pt):
-        ident = torch.stack(ed.pt_identity((pad,), device=pt.device))
-        return torch.cat([pt.to(torch.int64), ident], dim=-1)
-
-    def digits(d):
-        return torch.nn.functional.pad(d.to(torch.int64), (0, pad))
-
-    sel_a = ed.lookup_windows(ed.window_table(unpack_point(padded(a_pt))),
-                              digits(t_dig))
-    sel_r = ed.lookup_windows(ed.window_table(unpack_point(padded(r_pt))),
-                              digits(z_dig))
-    sel = tuple(torch.cat([ca, cr], dim=1).reshape(16, N_WINDOWS, g,
-                                                   LANE_TILE)
-                for ca, cr in zip(sel_a, sel_r))
-    w = pack_point(ed.pt_tree_sum(sel))               # (4, 16, 96, g)
-    return w.permute(3, 2, 0, 1).contiguous()[..., None]
+    sel_a = ed.lookup_windows(ed.window_table(unpack_point(a_pt.long())),
+                              t_dig.long())
+    sel_r = ed.lookup_windows(ed.window_table(unpack_point(r_pt.long())),
+                              z_dig.long())
+    sel = tuple(torch.cat([ca, cr], dim=1) for ca, cr in zip(sel_a, sel_r))
+    full = n // LANE_TILE * LANE_TILE
+    parts = []                                        # coords (16, 96, *)
+    if full:
+        parts.append(ed.pt_tree_sum(tuple(
+            c[..., :full].reshape(16, N_WINDOWS, -1, LANE_TILE)
+            for c in sel)))
+    if n > full:
+        parts.append(tuple(c[..., None] for c in ed.pt_tree_sum(
+            tuple(c[..., full:] for c in sel))))
+    if not parts:
+        return torch.empty((0, N_WINDOWS, 4, 16, TAIL), dtype=torch.int32,
+                           device=a_pt.device)
+    w = pack_point(tuple(torch.cat(cs, dim=-1) for cs in zip(*parts)))
+    return w.permute(3, 2, 0, 1).contiguous()[..., None]  # (G, 96, 4, 16, 1)
 
 
 def rlc_window_sums(a_pt: torch.Tensor, r_pt: torch.Tensor,
@@ -157,15 +160,16 @@ def rlc_window_sums(a_pt: torch.Tensor, r_pt: torch.Tensor,
     _check("r_pt", r_pt, (4, 16, n), torch.int32, dev)
     _check("t_dig", t_dig, (A_WINDOWS, n), torch.int32, dev)
     _check("z_dig", z_dig, (R_WINDOWS, n), torch.int32, dev)
-    g = n_tiles(n)
-    out = torch.empty((g, N_WINDOWS, 4, 16, TAIL), dtype=torch.int32,
-                      device=dev)
-    scratch = torch.empty((2, 16, 32, g * LANE_TILE), dtype=torch.int32,
-                          device=dev)
+    out = torch.empty((n_tiles(n), N_WINDOWS, 4, 16, TAIL),
+                      dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    # the tables, [table][lane][entry][32 words of X Y Z T]
+    scratch = torch.empty((2, n, 16, 32), dtype=torch.int32, device=dev)
     _launch("rlc_window_sums", a_pt.data_ptr(), r_pt.data_ptr(),
             t_dig.data_ptr(), z_dig.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), n)
-    LAUNCHES["rlc_window_sums"] += 1
+    LAUNCHES["rlc_window_sums"] += 2    # the tables, then the window sums
     return out
 
 

@@ -85,10 +85,29 @@ def _affine_point(pt):
     return x * zi % P, y * zi % P
 
 
+def _horner_case(bad=False):
+    """64 seeded nonzero digits d_i as s_dig, so every window picks up a
+    non-identity [d_i]B, and -[S]B in window 0's last partial, S =
+    sum 16^i d_i mod L: the points cancel only through the whole radix-16
+    Horner (True). `bad` changes digit 40, and nothing cancels (False)."""
+    d = np.random.default_rng(31).integers(1, 16, 64).astype(np.int32)
+    s = sum(int(x) << (4 * i) for i, x in enumerate(d)) % ref.L
+    xa, ya = _affine_point(ref.pt_mul(s, ref.BASE))
+    folded = np.zeros((4, 16, 96, M_EP), np.int32)
+    folded[1, 0] = 1
+    folded[2, 0] = 1
+    for ci, v in enumerate((P - xa, ya, 1, (P - xa) * ya % P)):
+        folded[ci, :, 0, M_EP - 1] = limbs_from_int(v)
+    if bad:
+        d[40] = d[40] % 15 + 1
+    return ("horner_bad" if bad else "horner"), folded, d, not bad
+
+
 def _epilogue_cases():
     """(name, folded, s_dig, expected verdict), built as
     tests/test_pallas.py builds them: P and -P cancelling inside the
-    fold, an uncancelled point, and [S]B cancelled by an -R window."""
+    fold, an uncancelled point, and [S]B cancelled by an -R window; and
+    the all-window Horner case."""
     ident = np.zeros((4, 16, 96, M_EP), np.int32)
     ident[1, 0] = 1
     ident[2, 0] = 1
@@ -109,7 +128,7 @@ def _epilogue_cases():
     s3[0] = 3
     return [("cancel", cancel, np.zeros((64,), np.int32), True),
             ("loose", loose, np.zeros((64,), np.int32), False),
-            ("sb", sb, s3, True)]
+            ("sb", sb, s3, True), _horner_case()]
 
 
 @pytest.fixture(scope="module")
@@ -168,11 +187,11 @@ def test_window_sums_plain_matches_pallas(shadow):
 
 
 def test_window_sums_ragged_edge_plain():
-    """A lane count that does not divide the 64-lane tile: the padded
-    lanes are identity points, so the tiles' partials sum to the plain
+    """A lane count that does not divide the LANE_TILE-lane chunk: the
+    last chunk holds 6 lanes, and the chunks' partials sum to the plain
     per-window lane sums over the real lanes."""
     rng = np.random.default_rng(13)
-    n = 70
+    n = cv.LANE_TILE + 6
     a, r = _rand_packed(rng, n), _rand_packed(rng, n)
     td = rng.integers(0, 16, (64, n)).astype(np.int32)
     zd = rng.integers(0, 16, (32, n)).astype(np.int32)
@@ -202,6 +221,12 @@ def test_epilogue_plain_matches_pallas(shadow):
         assert got.shape == () and got.dtype == torch.bool
         assert bool(got) == bool(out[f"rlc_epilogue@{name}.out0"]) == \
             expect, name
+    # the Horner case with one digit changed, plain only: the shadow
+    # backend would pay another 25 s for it
+    _, folded, sdig, expect = _horner_case(bad=True)
+    assert expect is False
+    assert not bool(cv.rlc_epilogue(torch.as_tensor(folded), b_tab,
+                                    torch.as_tensor(sdig)))
     with pytest.raises(ValueError):
         cv.rlc_epilogue(torch.zeros((4, 16, 96, 3), dtype=torch.int32),
                         b_tab, torch.zeros((64,), dtype=torch.int32))
@@ -247,7 +272,7 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(fe_canonical(pt[c])[:, ok],
                            fe_canonical(ppt[c])[:, ok])
     rng = np.random.default_rng(14)
-    for n in (8, 200):
+    for n in (8, 200, 3000):      # 3000: three chunks, the last part empty
         a, r = _rand_packed(rng, n), _rand_packed(rng, n)
         td = rng.integers(0, 16, (64, n)).astype(np.int32)
         zd = rng.integers(0, 16, (32, n)).astype(np.int32)
@@ -259,7 +284,8 @@ def test_kernels_match_plain_on_card():
                          ted.pt_tree_sum(cv.unpack_point(
                              cv.fold_partials(want).long()))).all()
     b_tab = torch.as_tensor(ted.small_base_table(), device=dev)
-    for name, folded, sdig, expect in _epilogue_cases():
+    for name, folded, sdig, expect in (*_epilogue_cases(),
+                                       _horner_case(bad=True)):
         args = (torch.as_tensor(folded, device=dev), b_tab,
                 torch.as_tensor(sdig, device=dev))
         assert bool(cv.rlc_epilogue(*args)) == \
