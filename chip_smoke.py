@@ -8,7 +8,9 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
 
 Phases; any failure exits non-zero:
 1. Build the four CUDA kernels from cometbft_tpu_torch/csrc/ (one nvcc
-   per source, all started together) and print the build seconds, the
+   per source, all started together), and beside them the one-thread
+   yardstick kernels of ONE_THREAD_CU (the parent's decompression and
+   addition, from the same fe25519.cuh); print the build seconds, the
    registers and spills ptxas reports, and the card's name and power
    limit.
 2. Generate the chain every later phase uses, from --seed: 48 blocks of
@@ -18,22 +20,30 @@ Phases; any failure exits non-zero:
    first 8,192 lanes, flattened with `marshal_commit`, are the seam's
    tile.
 3. Hold each kernel against its plain torch version on the card at the
-   main path's shapes (8192 lanes): decompression on real and edge
-   encodings (validity exact, points equal mod p), window sums per window
-   as group elements, epilogue verdicts on cancelling and non-cancelling
-   inputs (the clean tile, a changed [S]B digit, a loose point, and a
-   Horner case where every window holds a point and only the whole
-   radix-16 Horner cancels them, with its one-digit variant), point
-   additions as group elements (identity, P + (-P) and P + P lanes
-   included); decompression, window sums and additions again at 200
+   main path's shapes: decompression of the tile's A and R encodings in
+   one call of 16,384 lanes, as the RLC verify makes it, with real, edge
+   and random encodings (validity exact, points equal mod p, y as
+   given), and of the R half alone; window sums per window as group
+   elements, epilogue verdicts on cancelling and non-cancelling inputs
+   (the clean tile, a changed [S]B digit, a loose point, and a Horner
+   case where every window holds a point and only the whole radix-16
+   Horner cancels them, with its one-digit variant), point additions as
+   group elements (identity, P + (-P) and P + P lanes included), all at
+   8192 lanes; decompression, window sums and additions again at 200
    lanes, a count that divides none of their blocks, so each kernel's
-   masking of its ragged edge runs, and window sums at 3,000 lanes (three
-   chunks, the last part empty). Integers allow no tolerance: every error
-   must be 0. The epilogue is timed at the main path's M and at M = 128.
-   Then time where a flush goes: the host marshal,
-   SHA-512, the device part of the RLC verify, and (under torch.profiler)
-   the kernel launches and device-busy time of the RLC verify and of the
-   per-lane verify.
+   masking of its ragged edge runs, and window sums at 3,000 lanes
+   (three chunks, the last part empty). The yardsticks must agree with
+   the kernels. Integers allow no tolerance: every error must be 0.
+   Then every kernel, the yardsticks, the decompression at 8,192 lanes
+   and the epilogue at M = 128 run under one torch.profiler session: one
+   counted call each (the launch counter must equal the profiler's count
+   of the source's `__global__` functions), then 20 rounds of one call
+   of each in turn; `ms` is the median device time of a call. `call_ms`
+   is CUDA events around one wrapper call, the host's launch included.
+   Then time where a flush goes: the host marshal, SHA-512, the device
+   part of the RLC verify, and (under torch.profiler) the kernel
+   launches and device-busy time of the RLC verify and of the per-lane
+   verify.
 4. The paths, each with the launch counters zeroed just before it and
    read just after:
    - the BatchVerifier seam (`create_batch_verifier` ->
@@ -45,19 +55,19 @@ Phases; any failure exits non-zero:
      from genesis over the chain (tile 40, batch 8192, a fresh SigCache):
      height 48 in two tiles, the generator's app state and validator
      set; the same sync twice more, timed, and once under
-     torch.profiler (the card's idle share); then again from genesis
-     with height 7's block carrying a tampered signature: the peer is
-     banned at height 6 and the sync still reaches 48;
+     torch.profiler (the card's idle share; its launches per kernel must
+     equal the counters'); then again from genesis with height 7's
+     block carrying a tampered signature: the peer is banned at height
+     6 and the sync still reaches 48;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
-5. Print the {"kernels": [...]} line (launches from the paths, times and
-   bounds measured in this run, and for the two RLC point kernels the
-   dependent chain of field products of the busiest thread, beside that
-   of the design each replaced; `rlc_window_sums` counts two launches a
-   call), a timing line with the catch-up sigs/s
-   and where the sync's time goes, the card's name and power limit, and
-   last {"ok": true, "device": {...}}.
+5. Print the {"kernels": [...]} line (launches from the paths, device
+   and call times, bounds, and for the two redesigned per-lane kernels
+   the one-thread parent's device time from the same rounds;
+   `rlc_window_sums` counts two launches a call), a timing line with the
+   catch-up sigs/s and where the sync's time goes, the card's name and
+   power limit, and last {"ok": true, "device": {...}}.
 
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
@@ -66,6 +76,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -105,6 +116,111 @@ KERNELS = {
     "rlc_epilogue": ("rlc_epilogue.cu", 502),
     "pt_add_tiled": ("pt_add.cu", 277),
 }
+ROUNDS = 20           # timed calls of each kernel under torch.profiler
+
+# The one-thread designs that csrc/pt_decompress.cu and csrc/pt_add.cu
+# replaced (one lane per thread, 128-thread blocks, fe25519.cuh's
+# ge_decompress and ge_add): built here from the same header and timed
+# in turns with the kernels as the parent's yardstick. The port never
+# calls them.
+ONE_THREAD_CU = r"""
+#include <cuda_runtime.h>
+#include "fe25519.cuh"
+
+__global__ void __launch_bounds__(128)
+pt_decompress_one_thread_kernel(const int32_t* __restrict__ enc,
+                                int32_t* __restrict__ pt,
+                                uint8_t* __restrict__ ok, int n) {
+  int lane = blockIdx.x * 128 + threadIdx.x;
+  if (lane >= n) return;
+  ge p;
+  bool valid = ge_decompress(enc + lane, n, &p);
+  ge_store16(pt + lane, n, p);
+  ok[lane] = valid ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(128)
+pt_add_one_thread_kernel(const int32_t* __restrict__ p,
+                         const int32_t* __restrict__ q,
+                         int32_t* __restrict__ out, int n) {
+  int lane = blockIdx.x * 128 + threadIdx.x;
+  if (lane >= n) return;
+  ge_store16(out + lane, n,
+             ge_add(ge_load16(p + lane, n), ge_load16(q + lane, n)));
+}
+
+extern "C" int cbt_pt_decompress_one_thread(const int32_t* enc, int32_t* pt,
+                                            uint8_t* ok, int n, void* s) {
+  pt_decompress_one_thread_kernel<<<(n + 127) / 128, 128, 0,
+                                    (cudaStream_t)s>>>(enc, pt, ok, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cbt_pt_add_one_thread(const int32_t* p, const int32_t* q,
+                                     int32_t* out, int n, void* s) {
+  pt_add_one_thread_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)s>>>(
+      p, q, out, n);
+  return (int)cudaGetLastError();
+}
+"""
+ONE_THREAD_FNS = {"pt_decompress_tiled": "pt_decompress_one_thread_kernel",
+                  "pt_add_tiled": "pt_add_one_thread_kernel"}
+
+
+class OneThread:
+    """The yardstick kernels of ONE_THREAD_CU: the constructor starts
+    nvcc (beside the port's own builds), `load` waits for it and binds
+    both."""
+
+    def __init__(self, build):
+        self.dir = build.BUILD_DIR
+        self.dir.mkdir(parents=True, exist_ok=True)
+        src = self.dir / "one_thread.cu"
+        src.write_text(ONE_THREAD_CU)
+        self.lib_path = self.dir / "one_thread.so"
+        self.proc = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-I", str(build.CSRC), "-o", str(self.lib_path), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.launches = {"pt_decompress_tiled": 0, "pt_add_tiled": 0}
+
+    def load(self) -> str:
+        text, _ = self.proc.communicate()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the one-thread yardstick:\n"
+                               f"{text}")
+        lib = ctypes.CDLL(str(self.lib_path))
+        self._fns = {}
+        for key, sym in (("pt_decompress_tiled",
+                          "cbt_pt_decompress_one_thread"),
+                         ("pt_add_tiled", "cbt_pt_add_one_thread")):
+            fn = getattr(lib, sym)
+            fn.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int,
+                                                     ctypes.c_void_p)
+            fn.restype = ctypes.c_int
+            self._fns[key] = fn
+        self._lib = lib
+        return text
+
+    def _call(self, torch, key, a, b, c, n) -> None:
+        rc = self._fns[key](a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
+                            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"one-thread {key} launch failed: {rc}")
+        self.launches[key] += 1
+
+    def pt_decompress(self, torch, enc):
+        """(32, n) int32 -> (points (4, 16, n), valid (n,) bool)."""
+        n = enc.shape[-1]
+        pt = torch.empty((4, 16, n), dtype=torch.int32, device=enc.device)
+        ok = torch.empty((n,), dtype=torch.bool, device=enc.device)
+        self._call(torch, "pt_decompress_tiled", enc, pt, ok, n)
+        return pt, ok
+
+    def pt_add(self, torch, p, q):
+        out = torch.empty_like(p)
+        self._call(torch, "pt_add_tiled", p, q, out, p.shape[-1])
+        return out
 
 
 def _median_ms(torch, fn, reps: int) -> float:
@@ -254,33 +370,56 @@ def _hold_pt_add(torch, pkg, p, q):
     return err, out
 
 
-def check_kernels(torch, pkg, tile, dev, report):
-    """Phase 3: each kernel against its plain version at N = LANES, and
-    the three per-lane kernels again at N = RAGGED, where the last block
-    of each is part empty and the kernel masks its edge. Returns the
-    point additions' inputs, which the A/B phase times."""
+def _enc_tensor(torch, encs, dev):
+    return torch.as_tensor(np.stack([np.frombuffer(e, np.uint8)
+                                     for e in encs], axis=-1)
+                           .astype(np.int32), device=dev)
+
+
+def check_kernels(torch, pkg, tile, dev, report, yard):
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes (decompression at 2 N: A and R in one call), and the three
+    per-lane kernels again at N = RAGGED, where the last block of each is
+    part empty and the kernel masks its edge. Then every kernel, and the
+    one-thread yardsticks, under torch.profiler (`profile_kernels`).
+    Returns the point additions' inputs, which the A/B phase times."""
     cv, ed, fe, ped = pkg["cv"], pkg["ed"], pkg["fe"], pkg["ped"]
     ref = pkg["ref"]
     rng = np.random.default_rng(7)
     pubs, msgs, sigs = tile
     n = len(pubs)
 
-    # decompression: real R encodings mixed with edge and random bytes
-    encs = _edge_encodings(ref, [s[:32] for s in sigs], rng)
-    enc = torch.as_tensor(np.stack([np.frombuffer(e, np.uint8) for e in encs],
-                                   axis=-1).astype(np.int32), device=dev)
+    # decompression as the RLC verify calls it: the tile's A encodings
+    # and its R encodings side by side, with edge and random bytes among
+    # the R lanes; then the R half alone (N lanes), and RAGGED lanes
+    encs = list(pubs) + _edge_encodings(ref, [s[:32] for s in sigs], rng)
+    enc = _enc_tensor(torch, encs, dev)
     err, ok = _hold_decompress(torch, pkg, enc)
-    want_ok = [ref.pt_decompress(encs[i]) is not None for i in range(0, n, 97)]
+    want_ok = [ref.pt_decompress(encs[i]) is not None
+               for i in range(0, 2 * n, 97)]
     if ok[::97].cpu().tolist() != want_ok:
         raise AssertionError("pt_decompress_tiled disagrees with the oracle")
+    enc_a, enc_r = enc[:, :n].contiguous(), enc[:, n:].contiguous()
+    err_n, _ = _hold_decompress(torch, pkg, enc_r)
     # the ragged lanes: every undecodable lane first, then decodable ones
     pick = torch.argsort(ok.to(torch.int8), stable=True)[:RAGGED]
     err_r, ok_r = _hold_decompress(torch, pkg, enc[:, pick].contiguous())
+    # the yardstick decodes as the kernel does (its time is the parent's)
+    for half, sl in ((enc_a, slice(0, n)), (enc_r, slice(n, 2 * n))):
+        ypt, yok = yard.pt_decompress(torch, half)
+        if not torch.equal(yok, ok[sl]) or _point_err(
+                torch, fe,
+                tuple(c[:, yok] for c in cv.unpack_point(ypt.long())),
+                tuple(c[:, yok] for c in cv.unpack_point(
+                    cv.pt_decompress_tiled(half)[0].long()))):
+            raise AssertionError("the one-thread decompression differs")
     report["pt_decompress_tiled"] = {
-        "max_abs_err": max(err, err_r),
-        "ms": _median_ms(torch, lambda: cv.pt_decompress_tiled(enc), 20),
+        "max_abs_err": max(err, err_n, err_r), "lanes": 2 * n,
+        "call_ms": _median_ms(torch, lambda: cv.pt_decompress_tiled(enc),
+                              20),
         "plain_ms": _median_ms(torch, lambda: cv.pt_decompress_plain(enc), 3),
-        "bound": _bound_ms(n * MADS_DECOMPRESS, n * (32 * 4 + 64 * 4 + 1)),
+        "bound": _bound_ms(2 * n * MADS_DECOMPRESS,
+                           2 * n * (32 * 4 + 64 * 4 + 1)),
         "invalid_lanes": int((~ok).sum()),
         "ragged_invalid_lanes": int((~ok_r).sum())}
 
@@ -289,9 +428,10 @@ def check_kernels(torch, pkg, tile, dev, report):
     z = ped.make_rlc_coefficients(n, rng)
     t = [torch.as_tensor(x, device=dev) for x in (pub_a, sig_a, hb, hn, z)]
     r_enc, s = ped._split_sig(t[1])
-    a_pt, a_ok = cv.pt_decompress_tiled(
-        t[0].movedim(-1, 0).to(torch.int32).contiguous())
-    r_pt, r_ok = cv.pt_decompress_tiled(r_enc.to(torch.int32).contiguous())
+    pts, oks = cv.pt_decompress_tiled(torch.cat(
+        [t[0].movedim(-1, 0), r_enc], -1).to(torch.int32).contiguous())
+    a_pt, r_pt = pts[..., :n], pts[..., n:]
+    a_ok, r_ok = oks[:n], oks[n:]
     k = ped._challenge(t[2], t[3])
     _, s_sum, z16, tk = ped._scalar_side(s, pkg["sc"].sc_lt_l(s), a_ok, r_ok,
                                          k, t[4])
@@ -310,7 +450,8 @@ def check_kernels(torch, pkg, tile, dev, report):
     dbls = 14 * n
     report["rlc_window_sums"] = {
         "max_abs_err": max(err, err_r),
-        "ms": _median_ms(torch, lambda: cv.rlc_window_sums(*ws_args), 10),
+        "call_ms": _median_ms(torch, lambda: cv.rlc_window_sums(*ws_args),
+                              10),
         "plain_ms": _median_ms(torch,
                                lambda: cv.rlc_window_sums_plain(*ws_args), 3),
         "bound": _bound_ms(adds * MADS_ADD + dbls * MADS_DBL,
@@ -330,6 +471,10 @@ def check_kernels(torch, pkg, tile, dev, report):
         raise AssertionError("pt_add_tiled: P + (-P) is not the identity")
     err_r, _ = _hold_pt_add(torch, pkg,
                             *(a[..., :RAGGED].contiguous() for a in add_args))
+    if _point_err(torch, fe, cv.unpack_point(got.long()), cv.unpack_point(
+            yard.pt_add(torch, *add_args).long())):
+        raise AssertionError("the one-thread addition differs")
+    add8 = tuple(a[..., :8].contiguous() for a in add_args)
     report["pt_add_tiled"] = {
         "max_abs_err": max(err, err_r),
         "bound": _bound_ms(n * MADS_ADD, 3 * n * PT_BYTES)}
@@ -360,19 +505,28 @@ def check_kernels(torch, pkg, tile, dev, report):
         raise AssertionError("rlc_epilogue at M = 128 rejects the clean tile")
     report["rlc_epilogue"] = {
         "max_abs_err": err, "m": m,
-        "ms": _median_ms(torch, lambda: cv.rlc_epilogue(folded, b_tab, sdig),
-                         10),
+        "call_ms": _median_ms(
+            torch, lambda: cv.rlc_epilogue(folded, b_tab, sdig), 10),
         "plain_ms": _median_ms(
             torch, lambda: cv.rlc_epilogue_plain(folded, b_tab, sdig), 2),
         "bound": _epilogue_bound(m),
-        "m128": {"ms": _median_ms(
+        "m128": {"call_ms": _median_ms(
             torch, lambda: cv.rlc_epilogue(m128, b_tab, sdig), 10),
             "bound_ms": _epilogue_bound(128)[0]}}
-    per_call_launches(torch, cv, {
-        "pt_decompress_tiled": lambda: cv.pt_decompress_tiled(enc),
-        "rlc_window_sums": lambda: cv.rlc_window_sums(*ws_args),
-        "rlc_epilogue": lambda: cv.rlc_epilogue(folded, b_tab, sdig),
-        "pt_add_tiled": lambda: cv.pt_add_tiled(*add_args)}, report)
+    profile_kernels(torch, cv, yard, [
+        ("pt_decompress_tiled", lambda: cv.pt_decompress_tiled(enc)),
+        ("pt_decompress_tiled@n", lambda: cv.pt_decompress_tiled(enc_r)),
+        ("pt_decompress_tiled@one_thread",
+         lambda: (yard.pt_decompress(torch, enc_a),
+                  yard.pt_decompress(torch, enc_r))),
+        ("rlc_window_sums", lambda: cv.rlc_window_sums(*ws_args)),
+        ("rlc_epilogue", lambda: cv.rlc_epilogue(folded, b_tab, sdig)),
+        ("rlc_epilogue@m128", lambda: cv.rlc_epilogue(m128, b_tab, sdig)),
+        ("pt_add_tiled", lambda: cv.pt_add_tiled(*add_args)),
+        ("pt_add_tiled@one_thread", lambda: yard.pt_add(torch, *add_args)),
+        # 8 lanes: the fixed cost of a launch of this kernel
+        ("pt_add_tiled@lanes8", lambda: cv.pt_add_tiled(*add8)),
+    ], report)
     return add_args
 
 
@@ -415,10 +569,11 @@ def _horner_cases(torch, pkg, m: int, dev):
             for x, want in ((d, True), (bad, False))]
 
 
-def _device_kernels(torch, fn):
+def _device_kernels(torch, fn, by_name=None):
     """Run fn once under the CUDA profiler -> (kernel launches, summed
     kernel microseconds, wall seconds). (0, 0.0, wall) if the profiler
-    recorded no device events."""
+    recorded no device events. `by_name`, a dict, gets the launches of
+    each kernel name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -428,39 +583,94 @@ def _device_kernels(torch, fn):
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if by_name is not None:
+        for e in dev:
+            name = _kernel_name(e)
+            by_name[name] = by_name.get(name, 0) + 1
     return len(dev), float(sum(e.time_range.elapsed_us() for e in dev)), wall
 
 
-def per_call_launches(torch, cv, calls: dict, report) -> None:
-    """One call of each wrapper, counted twice: by its launch count, read
-    after the call, and by torch.profiler's device events named after a
-    `__global__` function of its source. One profiler session holds all
-    the calls. The two counts must agree."""
-    from torch.profiler import ProfilerActivity, profile
+def _kernel_name(e) -> str:
+    return re.match(r"(?:void\s+)?(\w*)", e.name or "").group(1)
+
+
+def _source_fns(name: str) -> set:
+    """The `__global__` functions of kernel `name`'s source."""
     csrc = Path(__file__).resolve().parent / "cometbft_tpu_torch" / "csrc"
-    counted = {}
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                          r"\([^)]*\)\s*)?(\w+)",
+                          (csrc / KERNELS[name][0]).read_text()))
+
+
+def profile_kernels(torch, cv, yard, jobs, report) -> None:
+    """Every job (label, call) under one torch.profiler session: first
+    one call of each with its launch count zeroed and read after it, then
+    ROUNDS rounds of one call of each job in turn. A label is a wrapper's
+    name, or the name and a tag: `one_thread` for the yardstick of
+    ONE_THREAD_CU, any other tag for the wrapper on other inputs.
+
+    The device events named after a source's `__global__` functions must
+    number (1 + ROUNDS) times the launches counted for its jobs. A job's
+    device time is the median over the rounds of the summed durations of
+    its launches in a round (both launches of `rlc_window_sums`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def fns_of(label):
+        base, _, tag = label.partition("@")
+        return frozenset({ONE_THREAD_FNS[base]} if tag == "one_thread"
+                         else _source_fns(base))
+
+    counts = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for name, fn in calls.items():
+        for label, fn in jobs:
+            base, _, tag = label.partition("@")
+            counter = yard.launches if tag == "one_thread" else cv.LAUNCHES
             cv.reset_launches()
+            counter[base] = 0
             fn()
             torch.cuda.synchronize()
-            counted[name] = cv.LAUNCHES[name]
-    seen = [re.match(r"(?:void\s+)?(\w*)", e.name or "").group(1)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    for name in calls:
-        fns = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
-                             r"\([^)]*\)\s*)?(\w+)",
-                             (csrc / KERNELS[name][0]).read_text()))
-        profiled = sum(1 for k in seen if k in fns)
-        if profiled != counted[name]:
-            raise AssertionError(
-                f"{name}: one call counts {counted[name]} launches, the "
-                f"profiler saw {profiled} of {sorted(fns)} among "
-                f"{sorted(set(seen))}")
-        report[name]["launches_per_call"] = counted[name]
-        report[name]["launches_per_call_profiled"] = profiled
+            counts[label] = counter[base]
+        for _ in range(ROUNDS):
+            for _label, fn in jobs:
+                fn()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, _kernel_name(e),
+                     e.time_range.elapsed_us()) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    queues, pos = {}, {}
+    for label, _fn in jobs:
+        fs = fns_of(label)
+        if fs not in queues:
+            queues[fs] = [us for _t, name, us in events if name in fs]
+            pos[fs] = 0
+        pos[fs] += counts[label]              # the counted call comes first
+    for fs, q in queues.items():
+        own = [label for label, _fn in jobs if fns_of(label) == fs]
+        want = (1 + ROUNDS) * sum(counts[label] for label in own)
+        if len(q) != want or len({counts[label] for label in own}) != 1:
+            seen = {label: counts[label] for label in own}
+            raise AssertionError(f"{sorted(fs)}: the profiler saw {len(q)} "
+                                 f"launches, the counters {want} ({seen})")
+    per: dict = {label: [] for label, _fn in jobs}
+    for _ in range(ROUNDS):
+        for label, _fn in jobs:
+            fs = fns_of(label)
+            k = counts[label]
+            per[label].append(sum(queues[fs][pos[fs]:pos[fs] + k]))
+            pos[fs] += k
+    for label, _fn in jobs:
+        base, _, tag = label.partition("@")
+        ms = float(np.median(per[label])) / 1e3
+        if tag:
+            report[base][f"{tag}_ms"] = ms
+            report[base][f"{tag}_launches_per_call"] = counts[label]
+            continue
+        report[base]["ms"] = ms
+        report[base]["launches_per_call"] = counts[label]
+        report[base]["launches_per_call_profiled"] = \
+            len(queues[fns_of(label)]) // (1 + ROUNDS) // sum(
+                1 for other, _fn in jobs if fns_of(other) == fns_of(label))
 
 
 def breakdown(torch, pkg, tile, dev) -> dict:
@@ -561,7 +771,7 @@ def run_pt_add_ab(torch, pkg, add_args, report) -> None:
     """The pt_add_tiled path: the op-level A/B of tools/ab_pallas.py,
     the kernel and its plain version timed on the same 8192 lanes."""
     cv = pkg["cv"]
-    report["pt_add_tiled"]["ms"] = _median_ms(
+    report["pt_add_tiled"]["call_ms"] = _median_ms(
         torch, lambda: cv.pt_add_tiled(*add_args), 50)
     report["pt_add_tiled"]["plain_ms"] = _median_ms(
         torch, lambda: cv.pt_add_tiled_plain(*add_args), 5)
@@ -606,11 +816,16 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
     _, recorder = trace.enable(seed=seed)
     try:
         if profile:
-            launches, busy_us, wall = _device_kernels(torch, sync)
+            names: dict = {}
+            launches, busy_us, wall = _device_kernels(torch, sync, names)
             out["profiled"] = {"kernel_launches": launches,
                                "device_busy_s": busy_us / 1e6,
                                "wall_s": wall,
-                               "idle_share": 1 - busy_us / 1e6 / wall}
+                               "idle_share": 1 - busy_us / 1e6 / wall,
+                               "launches_by_kernel": {
+                                   k: sum(names.get(f, 0)
+                                          for f in _source_fns(k))
+                                   for k in KERNELS}}
         else:
             t0 = time.perf_counter()
             sync()
@@ -679,15 +894,22 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gpu = _gpu_line()
 
-    # phase 1: build
+    # phase 1: build (the yardstick's nvcc runs beside the port's)
     t0 = time.perf_counter()
-    log = _build.build_all(verbose=True)
+    yard = OneThread(_build)
+    try:
+        log = _build.build_all(verbose=True)
+    except BaseException:
+        yard.proc.kill()
+        raise
+    log = {**log, "one_thread": {"output": yard.load(), "seconds": 0.0}}
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f}s wall, " + ", ".join(
-        f"{k} {v['seconds']:.1f}s" for k, v in log.items()), flush=True)
+        f"{k} {v['seconds']:.1f}s" for k, v in log.items()
+        if k != "one_thread"), flush=True)
     for name, v in log.items():
         for line in v["output"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling")):
                 print(f"ptxas {name}: {line.strip()}")
     print(f"gpu: {gpu}", flush=True)
 
@@ -702,8 +924,9 @@ def main(argv=None) -> int:
 
     # phase 3: kernels against their plain versions
     report: dict = {}
-    add_args = check_kernels(torch, pkg, tile, dev, report)
-    print(f"kernels match their plain versions at N={LANES} (and N={RAGGED} "
+    add_args = check_kernels(torch, pkg, tile, dev, report, yard)
+    print(f"kernels match their plain versions at N={LANES} (decompression "
+          f"at 2N={2 * LANES}, A and R in one call, and at N; N={RAGGED} "
           f"for decompression, window sums and additions, N={CHUNKS} for "
           "window sums)", flush=True)
     where = breakdown(torch, pkg, tile, dev)
@@ -725,8 +948,14 @@ def main(argv=None) -> int:
     sync["repeat_wall_s"] = [
         run_blocksync(torch, pkg, chain, gen_app, args.seed)["wall_s"]
         for _ in range(2)]
+    cv.reset_launches()
     sync["profiled"] = run_blocksync(torch, pkg, chain, gen_app, args.seed,
                                      profile=True)["profiled"]
+    counted = {k: cv.LAUNCHES[k] for k in rlc}
+    profiled = {k: sync["profiled"]["launches_by_kernel"][k] for k in rlc}
+    if counted != profiled or counted != {k: launches[k] for k in rlc}:
+        raise AssertionError(f"sync launches: counted {counted}, profiled "
+                             f"{profiled}, first sync {launches}")
 
     s = chain.blocks[6].last_commit.signatures[0].signature
     r_decodes = ref.pt_decompress(bytes([s[0] ^ 1]) + s[1:32]) is not None
@@ -751,14 +980,28 @@ def main(argv=None) -> int:
             "source": f"cometbft_tpu_torch/csrc/{src}",
             "replaces": f"cometbft_tpu/ops/pallas_verify.py:{line}",
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None, "on_node_path": name in rlc,
             "launches_seam": seam[name],
             "launches_tampered_sync": bad_launches[name],
+            "launches_profiled_sync": profiled.get(name),
             **{k: r[k] for k in ("launches_per_call",
-                                 "launches_per_call_profiled", "m", "m128")
+                                 "launches_per_call_profiled", "lanes", "m")
                if k in r}}
+        if name == "rlc_epilogue":
+            row["m128"] = {**r["m128"], "ms": r["m128_ms"]}
+        if name == "pt_decompress_tiled":
+            row["at_n"] = {"lanes": LANES, "ms": r["n_ms"]}
+        if name == "pt_add_tiled":
+            row["at_8_lanes"] = {"ms": r["lanes8_ms"]}
+        if name in ONE_THREAD_FNS:      # the parent's design, same call
+            row["parent"] = {
+                "design": "one thread per lane" + (
+                    ", A and R in two launches of N lanes"
+                    if name == "pt_decompress_tiled" else ""),
+                "ms": r["one_thread_ms"],
+                "launches_per_call": r["one_thread_launches_per_call"]}
         if name == "pt_add_tiled":
             row["launches"] = ab[name]      # its own phase: the A/B
         kernels.append(row)
@@ -768,10 +1011,12 @@ def main(argv=None) -> int:
         fig["apply_s"] = fig["span_s"].get("blocksync.apply", 0.0)
     print(json.dumps({"timing": {
         "kernels": {k: {"ms": report[k]["ms"],
+                        "call_ms": report[k]["call_ms"],
                         "plain_ms": report[k]["plain_ms"]} for k in KERNELS},
         "blocksync": {"clean": sync, "tampered": bad,
                       "tampered_r_decodes": r_decodes},
-        "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e, "breakdown": where, "lanes": LANES,
+        "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,
+        "breakdown": where, "lanes": LANES,
         "build_s": build_s, "canary": ped.canary_stats(), "gpu": gpu}}),
         flush=True)
     print(f"blocksync: {sync['sigs_per_s']:.1f} sigs/s catch-up "

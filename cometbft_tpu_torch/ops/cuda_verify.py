@@ -15,7 +15,9 @@ Dispatch is by the device of the input and nothing else:
 else), so a run can show that its main path went through the kernels.
 
 Kernels (sources in cometbft_tpu_torch/csrc/):
-- `pt_decompress_tiled` (pt_decompress.cu): ZIP-215 decode per lane.
+- `pt_decompress_tiled` (pt_decompress.cu): ZIP-215 decode, a lane's
+  field arithmetic on a group of 4 threads (fe25519_group.cuh). The
+  RLC verify decodes A and R in one call of 2N lanes.
 - `rlc_window_sums` (rlc_window_sums.cu): two launches per call, so it
   counts 2. The first builds the per-lane tables of -A and -R; the second
   selects by digit and sums each 1024-lane chunk over a (chunk, window)

@@ -108,16 +108,20 @@ def verify_rlc_core_cuda(pub: torch.Tensor, sig: torch.Tensor,
         [8]( [sum z_i s_i]B - sum z_i R_i - sum (z_i k_i) A_i ) == O
 
     with z_i 128-bit random coefficients (z: (N, 8) int32 limbs). The
-    point stages run in the CUDA kernels: decompression of A and R, the
-    fused window sums, and the epilogue. SHA-512 and the scalar work stay
-    in torch. Returns (batch_ok 0-d bool, struct_ok (N,) bool). If
-    batch_ok is True every struct_ok lane holds a valid signature; if
-    False the caller attributes with `verify_core`."""
+    point stages run in the CUDA kernels: decompression of A and R (one
+    call on their encodings side by side), the fused window sums, and
+    the epilogue. SHA-512 and the scalar work stay in torch. Returns
+    (batch_ok 0-d bool, struct_ok (N,) bool). If batch_ok is True every
+    struct_ok lane holds a valid signature; if False the caller
+    attributes with `verify_core`."""
     r_enc, s = _split_sig(sig)
     s_ok = sc_lt_l(s)
-    a_pt, a_ok = cv.pt_decompress_tiled(
-        pub.movedim(-1, 0).to(torch.int32).contiguous())
-    r_pt, r_ok = cv.pt_decompress_tiled(r_enc.to(torch.int32).contiguous())
+    # A and R in one call: (32, 2N), A's lanes first
+    n = pub.shape[0]
+    pts, oks = cv.pt_decompress_tiled(torch.cat(
+        [pub.movedim(-1, 0), r_enc], dim=-1).to(torch.int32).contiguous())
+    a_pt, r_pt = pts[..., :n], pts[..., n:]
+    a_ok, r_ok = oks[:n], oks[n:]
     k = _challenge(hblocks, hnblocks)
     struct_ok, s_sum, z16, t = _scalar_side(s, s_ok, a_ok, r_ok, k, z)
 

@@ -20,6 +20,7 @@ import torch
 import _shadow_jax
 from cometbft_tpu_torch.crypto import ref_ed25519 as ref
 from cometbft_tpu_torch.ops import cuda_verify as cv
+from cometbft_tpu_torch.ops import ed25519 as ped
 from cometbft_tpu_torch.ops import edwards as ted
 from cometbft_tpu_torch.ops.field import fe_canonical, limbs_from_int
 
@@ -259,19 +260,84 @@ def test_wrappers_refuse_other_devices():
         cv.pt_add_tiled(pt, pt)
 
 
+def _rlc_core_two_calls(pub, sig, hblocks, hnblocks, z):
+    """`verify_rlc_core_cuda` as it was with one decompression call for
+    A and one for R."""
+    r_enc, s = ped._split_sig(sig)
+    a_pt, a_ok = cv.pt_decompress_tiled(
+        pub.movedim(-1, 0).to(torch.int32).contiguous())
+    r_pt, r_ok = cv.pt_decompress_tiled(r_enc.to(torch.int32).contiguous())
+    k = ped._challenge(hblocks, hnblocks)
+    struct_ok, s_sum, z16, t = ped._scalar_side(s, ped.sc_lt_l(s), a_ok,
+                                                r_ok, k, z)
+    out = cv.rlc_window_sums(
+        ped._neg_packed(a_pt), ped._neg_packed(r_pt),
+        ped.sc_nibbles(t).to(torch.int32).contiguous(),
+        ped.sc_nibbles(z16)[:ped.ZWIN].to(torch.int32).contiguous())
+    b_tab = torch.as_tensor(ted.small_base_table())
+    return cv.rlc_epilogue(
+        cv.fold_partials(out), b_tab,
+        ped.sc_nibbles(s_sum).to(torch.int32).contiguous()), struct_ok
+
+
+def test_rlc_core_one_decompress_call(monkeypatch):
+    """The RLC verify decodes A and R in one call of 2N lanes, and gives
+    the (batch_ok, struct_ok) of the two-call version on a tile with an
+    undecodable A lane and an undecodable R lane: True while only those
+    are bad, False once a signature's s is tampered."""
+    rng = np.random.default_rng(23)
+    n = 8
+    seeds = [rng.bytes(32) for _ in range(n)]
+    msgs = [b"vote %d" % i for i in range(n)]
+    pubs = [ref.pubkey_from_seed(sd) for sd in seeds]
+    sigs = [ref.sign(sd, m) for sd, m in zip(seeds, msgs)]
+    bad = next(e for e in (rng.bytes(32) for _ in range(64))
+               if ref.pt_decompress(e) is None)
+    pubs[2] = bad
+    sigs[5] = bad + sigs[5][32:]
+    calls = []
+    real = cv.pt_decompress_tiled
+
+    def counted(enc):
+        calls.append(enc.shape[-1])
+        return real(enc)
+    monkeypatch.setattr(cv, "pt_decompress_tiled", counted)
+    for tamper in (False, True):
+        if tamper:
+            sigs[6] = sigs[6][:40] + bytes([sigs[6][40] ^ 1]) + sigs[6][41:]
+        pub, sig, hb, hn, _ = ped.prepare_batch(pubs, msgs, sigs, n, 128)
+        args = [torch.as_tensor(x) for x in
+                (pub, sig, hb, hn, ped.make_rlc_coefficients(n, rng))]
+        del calls[:]
+        ok, struct = ped.verify_rlc_core_cuda(*args)
+        assert calls == [2 * n]
+        ok2, struct2 = _rlc_core_two_calls(*args)
+        assert calls == [2 * n, n, n]
+        assert bool(ok) == bool(ok2) == (not tamper)
+        assert torch.equal(struct, struct2)
+        assert struct.tolist() == [i not in (2, 5) for i in range(n)]
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
-    enc = torch.as_tensor(_enc_inputs(), device=dev)
-    pt, ok = cv.pt_decompress_tiled(enc)
-    ppt, pok = cv.pt_decompress_plain(enc)
-    assert torch.equal(ok, pok)
-    for c in range(4):
-        assert torch.equal(fe_canonical(pt[c])[:, ok],
-                           fe_canonical(ppt[c])[:, ok])
     rng = np.random.default_rng(14)
+    # the edge encodings first; 512 lanes: the RLC verify's one call for
+    # A and R of a 256-lane bucket; 8 and 200 lanes leave the last warp
+    # and the last block part empty
+    for n in (8, 200, 512):
+        enc = np.concatenate([_enc_inputs()[:, ::-1], rng.integers(
+            0, 256, (32, max(n - N_DEC, 0))).astype(np.int32)], -1)[:, :n]
+        enc = torch.as_tensor(enc, device=dev).contiguous()
+        pt, ok = cv.pt_decompress_tiled(enc)
+        ppt, pok = cv.pt_decompress_plain(enc)
+        assert torch.equal(ok, pok) and 0 < int(ok.sum()) < n
+        assert torch.equal(pt[1], ppt[1])         # y as the bytes give it
+        for c in range(4):
+            assert torch.equal(fe_canonical(pt[c])[:, ok],
+                               fe_canonical(ppt[c])[:, ok])
     for n in (8, 200, 3000):      # 3000: three chunks, the last part empty
         a, r = _rand_packed(rng, n), _rand_packed(rng, n)
         td = rng.integers(0, 16, (64, n)).astype(np.int32)
