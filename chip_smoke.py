@@ -13,12 +13,14 @@ Phases; any failure exits non-zero:
    addition, from the same fe25519.cuh); print the build seconds, the
    registers and spills ptxas reports, and the card's name and power
    limit.
-2. Generate the chain every later phase uses, from --seed: 48 blocks of
+2. Generate the chain most later phases use, from --seed: 48 blocks of
    a 200-validator set, 2 txs a block, through the real executor on the
    card (`engine/chain_gen.generate_chain`, as `bench.py:154` sizes
    blocksync); 9,600 precommit signatures over real sign-bytes. Its
    first 8,192 lanes, flattened with `marshal_commit`, are the seam's
-   tile.
+   tile. Then the pipeline's chain, the same but 121 blocks: three full
+   tiles of 40 x 200 = 8,000 lanes and one more block (24,200
+   signatures), enough to keep several tiles in flight.
 3. Hold each kernel against its plain torch version on the card at the
    main path's shapes: decompression of the tile's A and R encodings in
    one call of 16,384 lanes, as the RLC verify makes it, with real, edge
@@ -59,15 +61,39 @@ Phases; any failure exits non-zero:
      equal the counters'); then again from genesis with height 7's
      block carrying a tampered signature: the peer is banned at height
      6 and the sync still reaches 48;
+   - the pipelined catch-up over the 121-block chain, through
+     `BlocksyncReactor(pipeline_depth=K)` with a DeviceWatchdog and a
+     DeviceSupervisor (canary lanes on): K = 1, 2 and 4, three timed
+     syncs each in alternating order (1, 2, 4, then 4, 2, 1, then 1, 2,
+     4), every run kept, each with the main thread's and the process's
+     CPU time and every `verify_lanes` call's wall and CPU time on the
+     thread that made it (`VerifyClock`: the difference is time spent
+     waiting for the interpreter lock or the card); one profiled sync
+     per depth, kept only if the profiler saw every launch the counters
+     made (up to PROFILE_TRIES syncs; where every try missed some, the
+     busy time and idle share are null and the misses are printed); the
+     tampered sync at depth 1 and 4, which must ban the same height.
+     Every run must reach the generator's state with no trip, drain,
+     canary failure or quarantine, and launch the three RLC kernels;
+   - the device server (`device/server.DeviceServer`, bucket 8192, on
+     the card, in this process): two `DeviceClient`s send the seam
+     tile's first 4,000 lanes and its next 4,000 (one tampered) at once,
+     and each must get `verify_batch`'s in-process verdicts; then the
+     48-block chain synced at depth 2 through `DeviceClientBackend`, and
+     one `create_batch_verifier` call with COMETBFT_TPU_DEVICE_SERVER
+     set, which must give a `RemoteBatchVerifier` that verifies through
+     the server. No flush may fail;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
 5. Print the {"kernels": [...]} line (launches from the paths, device
    and call times, bounds, and for the two redesigned per-lane kernels
    the one-thread parent's device time from the same rounds;
-   `rlc_window_sums` counts two launches a call), a timing line with the
-   catch-up sigs/s and where the sync's time goes, the card's name and
-   power limit, and last {"ok": true, "device": {...}}.
+   `rlc_window_sums` counts two launches a call, and the launches of the
+   pipelined syncs and of the device server's paths), a timing line
+   with the catch-up sigs/s and where the sync's time goes, the
+   pipelined depths' medians and spreads and the server's stats, the
+   card's name and power limit, and last {"ok": true, "device": {...}}.
 
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
@@ -93,6 +119,13 @@ BLOCKS = 48           # 9,600 signatures: two tiles of catch-up
 TILE = 40             # 40 x 200 = 8,000 lanes, one 8192-lane flush
 RAGGED = 200          # a lane count that divides no block of the kernels
 CHUNKS = 3000         # window sums over three chunks, the last part empty
+PIPE_BLOCKS = 121     # three full 40-block tiles (24,000 sigs) and one more
+DEPTHS = (1, 2, 4)    # pipeline depths of the pipelined catch-up
+PIPE_REPEATS = 3      # timed syncs per depth, in alternating order
+PROFILE_TRIES = 3     # profiled syncs per depth until one misses nothing
+PROFILE_TAIL_S = 0.2  # a profile stays open this long past its synchronize
+SERVER_LANES = 4000   # lanes each of the two device-server clients sends
+SERVER_FLUSH_US = 20_000  # coalescing window: both clients share a flush
 INT32_MAD_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x clock
 HBM_BYTES_PER_S = 3.35e12
 # The least int32 multiply-adds per field operation: a 32x32->64-bit
@@ -251,9 +284,9 @@ def _gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def make_chain(seed: int):
-    """The chain of every later phase, and the generator's app (its
-    final state is what a sync must reach)."""
+def make_chain(seed: int, n_blocks: int):
+    """A chain of `n_blocks` blocks and the generator's app (its final
+    state is what a sync must reach)."""
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
     from cometbft_tpu_torch.engine.chain_gen import generate_chain
     apps = []
@@ -262,7 +295,7 @@ def make_chain(seed: int):
         apps.append(KVStoreApplication())
         return apps[-1]
 
-    chain = generate_chain(n_blocks=BLOCKS, n_validators=VALIDATORS,
+    chain = generate_chain(n_blocks=n_blocks, n_validators=VALIDATORS,
                            txs_per_block=2, seed=seed,
                            app_factory=app_factory, device="cuda")
     return chain, apps[0]
@@ -569,11 +602,13 @@ def _horner_cases(torch, pkg, m: int, dev):
             for x, want in ((d, True), (bad, False))]
 
 
-def _device_kernels(torch, fn, by_name=None):
+def _device_kernels(torch, fn, by_name=None, order=None):
     """Run fn once under the CUDA profiler -> (kernel launches, summed
     kernel microseconds, wall seconds). (0, 0.0, wall) if the profiler
     recorded no device events. `by_name`, a dict, gets the launches of
-    each kernel name."""
+    each kernel name; `order`, a dict of kernel name -> letter, makes
+    the fourth item the letters of those kernels' events in start
+    order."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -581,13 +616,23 @@ def _device_kernels(torch, fn, by_name=None):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        # profiles that stopped right after the last launch lost the
+        # last flush's window-sums and epilogue events (PERF.md): the
+        # session stays open a while past the synchronize
+        time.sleep(PROFILE_TAIL_S)
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if by_name is not None:
         for e in dev:
             name = _kernel_name(e)
             by_name[name] = by_name.get(name, 0) + 1
-    return len(dev), float(sum(e.time_range.elapsed_us() for e in dev)), wall
+    out = (len(dev), float(sum(e.time_range.elapsed_us() for e in dev)),
+           wall)
+    if order is None:
+        return out
+    named = ((e.time_range.start, _kernel_name(e)) for e in dev)
+    seq = sorted((t, order[n]) for t, n in named if n in order)
+    return out + ("".join(c for _, c in seq),)
 
 
 def _kernel_name(e) -> str:
@@ -778,34 +823,47 @@ def run_pt_add_ab(torch, pkg, add_args, report) -> None:
 
 
 def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
-                  profile=False) -> dict:
+                  profile=False, depth=1, guards=False,
+                  backend=None) -> dict:
     """One catch-up from genesis over the chain on the card, through
-    `BlocksyncReactor.sync`; checks the final state against the
-    generator's and returns the sync's figures, with the time spent in
-    each blocksync span. `profile` runs the sync under torch.profiler
-    and adds its kernel launches and device-busy seconds (the wall then
-    carries the profiler's cost)."""
+    `BlocksyncReactor.sync` at `pipeline_depth=depth` (tile 40, batch
+    8192, a fresh SigCache); checks the final state against the
+    generator's and returns the sync's figures: the time spent in each
+    span, and the kernel launches of the sync alone (the counts are
+    zeroed just before it and read just after, so the kernels' prewarm
+    at the reactor's construction is not among them). `guards` gives
+    the reactor a DeviceWatchdog and a DeviceSupervisor with canary
+    lanes, and then no trip, drain, canary failure or quarantine may
+    happen. `backend` is the pipeline's verify backend (default: the
+    reactor's in-process one). `profile` runs the sync under
+    torch.profiler and adds its kernel launches and device-busy seconds
+    (the wall then carries the profiler's cost)."""
     from cometbft_tpu_torch import trace
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
     from cometbft_tpu_torch.db.kv import MemDB
+    from cometbft_tpu_torch.device.health import DeviceSupervisor
     from cometbft_tpu_torch.engine.blocksync import BlocksyncReactor
     from cometbft_tpu_torch.engine.chain_gen import LocalChainSource
     from cometbft_tpu_torch.pipeline.cache import (SigCache,
                                                    reset_shared_cache)
+    from cometbft_tpu_torch.pipeline.watchdog import DeviceWatchdog
     from cometbft_tpu_torch.state.execution import BlockExecutor
     from cometbft_tpu_torch.state.state import State
     from cometbft_tpu_torch.store.blockstore import BlockStore
-    ped = pkg["ped"]
+    ped, cv = pkg["ped"], pkg["cv"]
     # the generator's commit checks filled the process-wide cache; a
     # sync that found every lane there would leave the card idle
     reset_shared_cache()
     app = KVStoreApplication()
     app.init_chain(chain.chain_id, 1, [], b"")
     src = LocalChainSource(chain, dict(corrupt or {}))
+    supervisor = DeviceSupervisor(canary=True) if guards else None
+    watchdog = DeviceWatchdog(supervisor=supervisor) if guards else None
     reactor = BlocksyncReactor(
         BlockExecutor(app, device="cuda"), BlockStore(MemDB()), src,
         chain.chain_id, tile_size=TILE, batch_size=LANES, cache=SigCache(),
-        device="cuda")
+        pipeline_depth=depth, backend=backend, watchdog=watchdog,
+        supervisor=supervisor, device="cuda")
     state = State.from_genesis(chain.genesis)
     stats0 = dict(ped.STATS)
     out: dict = {}
@@ -815,10 +873,21 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
 
     _, recorder = trace.enable(seed=seed)
     try:
+        torch.cuda.synchronize()
+        cv.reset_launches()
         if profile:
             names: dict = {}
-            launches, busy_us, wall = _device_kernels(torch, sync, names)
+            # the RLC kernels' events in start order, a flush reading
+            # D T W E (decompression, tables, window sums, epilogue):
+            # where a profile misses launches, this shows which flush
+            letters = {f: c for k, c in (("pt_decompress_tiled", "D"),
+                                         ("rlc_epilogue", "E"))
+                       for f in _source_fns(k)}
+            letters.update(rlc_tables_kernel="T", rlc_window_sums_kernel="W")
+            launches, busy_us, wall, order = _device_kernels(
+                torch, sync, names, letters)
             out["profiled"] = {"kernel_launches": launches,
+                               "rlc_order": order,
                                "device_busy_s": busy_us / 1e6,
                                "wall_s": wall,
                                "idle_share": 1 - busy_us / 1e6 / wall,
@@ -828,9 +897,13 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
                                    for k in KERNELS}}
         else:
             t0 = time.perf_counter()
+            c0, p0 = time.thread_time(), time.process_time()
             sync()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            out["main_cpu_s"] = time.thread_time() - c0
+            out["process_cpu_s"] = time.process_time() - p0
+        counted = dict(cv.LAUNCHES)
         spans = recorder.snapshot()
     finally:
         trace.disable()
@@ -840,7 +913,8 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
         span_s[sp["name"]] = span_s.get(sp["name"], 0.0) + \
             (sp["t1"] - sp["t0"]) / 1e9
     st = reactor.stats
-    if state.last_block_height != BLOCKS or st.blocks_applied != BLOCKS:
+    top = chain.max_height()
+    if state.last_block_height != top or st.blocks_applied != top:
         raise AssertionError(f"sync stopped at {state.last_block_height}, "
                              f"{st}")
     if state.app_hash != gen_app.last_app_hash or \
@@ -850,23 +924,257 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
             chain.blocks[-1].header.next_validators_hash or \
             state.last_block_id != chain.block_ids[-1]:
         raise AssertionError("synced validators or last block id differ")
-    return {"wall_s": wall, "sigs_verified": st.sigs_verified,
-            "sigs_per_s": st.sigs_verified / wall,
-            "tiles_flushed": st.tiles_flushed,
-            "respeculations": st.respeculations, "banned": src.banned,
-            "rlc_pass": ped.STATS["rlc_pass"] - stats0["rlc_pass"],
-            "per_lane": ped.STATS["per_lane"] - stats0["per_lane"],
-            "span_s": span_s, **({"profiled": out["profiled"]}
-                                 if profile else {})}
+    fig = {"depth": depth, "wall_s": wall, "sigs_verified": st.sigs_verified,
+           "sigs_per_s": st.sigs_verified / wall,
+           "tiles_flushed": st.tiles_flushed,
+           "respeculations": st.respeculations, "banned": src.banned,
+           "rlc_pass": ped.STATS["rlc_pass"] - stats0["rlc_pass"],
+           "per_lane": ped.STATS["per_lane"] - stats0["per_lane"],
+           "launches": counted, "span_s": span_s,
+           **{k: out[k] for k in ("profiled", "main_cpu_s", "process_cpu_s")
+              if k in out}}
+    if guards:
+        fig["guards"] = {
+            "watchdog_trips": watchdog.trips,
+            "watchdog_fallbacks": watchdog.fallbacks,
+            "supervisor": supervisor.state_name(),
+            "canary_failures": supervisor.canary_failures,
+            "quarantines": supervisor.quarantines,
+            "cpu_drains": sum(1 for sp in spans
+                              if sp["name"] == "pipeline.cpu_drain")}
+        g = fig["guards"]
+        if (g["watchdog_trips"] or g["watchdog_fallbacks"]
+                or g["supervisor"] != "healthy" or g["canary_failures"]
+                or g["quarantines"] or g["cpu_drains"]):
+            raise AssertionError(f"depth {depth}: a drain, trip or canary "
+                                 f"failure: {g}")
+    return fig
 
 
-def _read_path(cv, path: str, kernels) -> dict:
+def _read_path(launches: dict, path: str, kernels) -> dict:
     """The launch counts of one path; every kernel of it must have run."""
-    launches = dict(cv.LAUNCHES)
     if not all(launches[k] > 0 for k in kernels):
         raise AssertionError(f"{path}: a kernel was not launched: "
                              f"{launches}")
-    return launches
+    return dict(launches)
+
+
+class VerifyClock:
+    """Times every `verify_lanes` call of the catch-up on the thread that
+    makes it (the main thread at depth 1, the pipeline's worker at depth
+    K): its wall time and that thread's CPU time. The rest of the wall
+    is time the thread waited, for the interpreter lock or for the card.
+    It wraps the function where the synchronous loop and the pipeline's
+    in-process backend look it up, and `close` puts it back."""
+
+    def __init__(self):
+        from cometbft_tpu_torch.engine import blocksync
+        from cometbft_tpu_torch.pipeline import scheduler
+        self.mods = (blocksync, scheduler)
+        self.orig = blocksync.verify_lanes
+        self.calls: list = []
+
+        def timed(*args, **kw):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return self.orig(*args, **kw)
+            finally:
+                self.calls.append((time.perf_counter() - t0,
+                                   time.thread_time() - c0))
+
+        for mod in self.mods:
+            mod.verify_lanes = timed
+
+    def take(self) -> dict:
+        calls, self.calls = self.calls, []
+        return {"calls": len(calls), "wall_s": sum(w for w, _ in calls),
+                "cpu_s": sum(c for _, c in calls)}
+
+    def close(self) -> None:
+        for mod in self.mods:
+            mod.verify_lanes = self.orig
+
+
+def _spread(xs) -> dict:
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs)), "runs": [float(x) for x in xs]}
+
+
+def run_pipeline(torch, pkg, chain, gen_app, seed) -> dict:
+    """The pipelined catch-up: the chain synced at each depth of DEPTHS,
+    PIPE_REPEATS times each in alternating order (1, 2, 4 then 4, 2, 1),
+    every run kept, with the watchdog and the supervisor (canaries on);
+    then one profiled sync per depth whose profile holds every launch
+    the counters made (up to PROFILE_TRIES; the misses of each try are
+    kept, and if every try missed some the busy time and idle share are
+    null: they would undercount), and the tampered sync at depth 1 and
+    at the deepest depth, which must ban the same height. Every sync
+    must launch the three RLC kernels."""
+    rlc = ("pt_decompress_tiled", "rlc_window_sums", "rlc_epilogue")
+    runs: dict = {d: [] for d in DEPTHS}
+    clock = VerifyClock()
+    try:
+        for r in range(PIPE_REPEATS):
+            for d in (DEPTHS if r % 2 == 0 else DEPTHS[::-1]):
+                fig = run_blocksync(torch, pkg, chain, gen_app, seed,
+                                    depth=d, guards=True)
+                fig["verify_calls"] = clock.take()
+                _read_path(fig["launches"], f"pipelined sync, depth {d}",
+                           rlc)
+                if fig["banned"] or fig["per_lane"]:
+                    raise AssertionError(f"clean pipelined sync: {fig}")
+                runs[d].append(fig)
+    finally:
+        clock.close()
+    out: dict = {"blocks": chain.max_height(), "depths": {}}
+    for d in DEPTHS:
+        misses, orders, totals = [], [], []
+        for _ in range(PROFILE_TRIES):
+            prof = run_blocksync(torch, pkg, chain, gen_app, seed, depth=d,
+                                 guards=True, profile=True)
+            _read_path(prof["launches"], f"profiled sync, depth {d}", rlc)
+            by_kernel = prof["profiled"]["launches_by_kernel"]
+            misses.append({k: prof["launches"][k] - by_kernel[k]
+                           for k in rlc})
+            orders.append(prof["profiled"]["rlc_order"])
+            totals.append(prof["profiled"]["kernel_launches"])
+            if not any(misses[-1].values()):
+                break
+        prof["profiled"]["missed_by_try"] = misses
+        prof["profiled"]["order_by_try"] = orders
+        prof["profiled"]["launches_by_try"] = totals
+        if any(misses[-1].values()):
+            # the profile lost device events: its busy time undercounts
+            print(f"profiled sync, depth {d}: the profiler missed "
+                  f"launches on every try {misses} (RLC order {orders}); "
+                  f"busy time and idle share not measured", flush=True)
+            prof["profiled"]["device_busy_s"] = None
+            prof["profiled"]["idle_share"] = None
+        spans = sorted({n for f in runs[d] for n in f["span_s"]})
+        out["depths"][d] = {
+            "wall_s": _spread([f["wall_s"] for f in runs[d]]),
+            "sigs_per_s": _spread([f["sigs_per_s"] for f in runs[d]]),
+            "span_s": {n: _spread([f["span_s"].get(n, 0.0)
+                                   for f in runs[d]]) for n in spans},
+            "main_cpu_s": _spread([f["main_cpu_s"] for f in runs[d]]),
+            "process_cpu_s": _spread([f["process_cpu_s"] for f in runs[d]]),
+            "verify_wall_s": _spread([f["verify_calls"]["wall_s"]
+                                      for f in runs[d]]),
+            "verify_cpu_s": _spread([f["verify_calls"]["cpu_s"]
+                                     for f in runs[d]]),
+            "verify_calls": runs[d][0]["verify_calls"]["calls"],
+            "sigs_verified": runs[d][0]["sigs_verified"],
+            "tiles_flushed": runs[d][0]["tiles_flushed"],
+            "launches": runs[d][0]["launches"],
+            "guards": [f["guards"] for f in runs[d]],
+            "profiled": prof["profiled"]}
+    bad = {d: run_blocksync(torch, pkg, chain, gen_app, seed, {7: "sig"},
+                            depth=d, guards=True)
+           for d in (DEPTHS[0], DEPTHS[-1])}
+    bans = {d: f["banned"] for d, f in bad.items()}
+    if not bans[DEPTHS[0]] or bans[DEPTHS[0]][0] not in (6, 7) or \
+            len({tuple(b) for b in bans.values()}) != 1:
+        raise AssertionError(f"tampered pipelined syncs banned {bans}")
+    for d, f in bad.items():
+        _read_path(f["launches"], f"tampered sync, depth {d}", rlc)
+    out["tampered"] = {d: {k: f[k] for k in ("wall_s", "banned",
+                                             "per_lane", "launches",
+                                             "guards")}
+                       for d, f in bad.items()}
+    return out
+
+
+def run_device_server(torch, pkg, tile, chain, gen_app, seed) -> dict:
+    """The device server on the card, in this process: two clients send
+    the seam tile's first SERVER_LANES lanes and its next SERVER_LANES
+    (one tampered) at once; each client's verdicts must equal
+    `verify_batch`'s in-process verdicts on the same lanes. Then one
+    pipelined sync of the 48-block chain at depth 2 through
+    `DeviceClientBackend`, and one `create_batch_verifier` call with
+    COMETBFT_TPU_DEVICE_SERVER set, which must give a
+    `RemoteBatchVerifier`. No flush may fail."""
+    from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.device import client as dclient
+    from cometbft_tpu_torch.device.server import DeviceServer
+    from cometbft_tpu_torch.pipeline.scheduler import DeviceClientBackend
+    ped, cv = pkg["ped"], pkg["cv"]
+    rlc = ("pt_decompress_tiled", "rlc_window_sums", "rlc_epilogue")
+    pubs, msgs, sigs = tile
+    a = slice(0, SERVER_LANES)
+    b = slice(SERVER_LANES, 2 * SERVER_LANES)
+    b_sigs = list(sigs[b])
+    k = SERVER_LANES // 3   # the tampered lane of the second client
+    b_sigs[k] = b_sigs[k][:33] + bytes([b_sigs[k][33] ^ 1]) + b_sigs[k][34:]
+    out: dict = {}
+    t0 = time.perf_counter()
+    srv = DeviceServer(bucket=LANES, flush_us=SERVER_FLUSH_US,
+                       device="cuda")
+    clients = []
+    try:
+        srv.start()
+        out["start_s"] = time.perf_counter() - t0
+        clients = [dclient.DeviceClient(*srv.addr) for _ in range(2)]
+        flushes0 = srv.stats["flushes"]
+        torch.cuda.synchronize()
+        cv.reset_launches()
+        t0 = time.perf_counter()
+        fa = clients[0].submit(pubs[a], msgs[a], sigs[a])
+        fb = clients[1].submit(pubs[b], msgs[b], b_sigs)
+        ok_a, oks_a = fa.result()
+        ok_b, oks_b = fb.result()
+        out["two_clients_s"] = time.perf_counter() - t0
+        out["two_clients_flushes"] = srv.stats["flushes"] - flushes0
+        out["launches"] = _read_path(dict(cv.LAUNCHES), "device server", rlc)
+        want_a = ped.verify_batch(pubs[a], msgs[a], sigs[a],
+                                  batch_size=LANES, device="cuda")
+        want_b = ped.verify_batch(pubs[b], msgs[b], b_sigs,
+                                  batch_size=LANES, device="cuda")
+        if oks_a != [bool(v) for v in want_a] or not ok_a or \
+                not all(oks_a) or len(oks_a) != SERVER_LANES:
+            raise AssertionError("device server: the clean client's "
+                                 "verdicts differ")
+        if oks_b != [bool(v) for v in want_b] or ok_b or \
+                [i for i, v in enumerate(oks_b) if not v] != [k]:
+            raise AssertionError("device server: the tampered client's "
+                                 "verdicts differ")
+        fig = run_blocksync(torch, pkg, chain, gen_app, seed, depth=2,
+                            guards=True,
+                            backend=DeviceClientBackend(clients[0]))
+        _read_path(fig["launches"], "pipelined sync through the server",
+                   rlc)
+        out["sync"] = {k2: fig[k2] for k2 in ("wall_s", "sigs_per_s",
+                                              "sigs_verified", "launches",
+                                              "guards", "span_s")}
+        os.environ[dclient.ENV_VAR] = f"127.0.0.1:{srv.addr[1]}"
+        try:
+            bv, supported = create_batch_verifier(Ed25519PubKey(pubs[0]),
+                                                  batch_size=LANES)
+            if not supported or not isinstance(bv,
+                                               dclient.RemoteBatchVerifier):
+                raise AssertionError(f"create_batch_verifier gave {bv!r}")
+            for pk, msg, sig in zip(pubs[:VALIDATORS], msgs[:VALIDATORS],
+                                    sigs[:VALIDATORS]):
+                bv.add(Ed25519PubKey(pk), msg, sig)
+            flushes0 = srv.stats["flushes"]
+            ok, oks = bv.verify()
+            if not ok or len(oks) != VALIDATORS or \
+                    srv.stats["flushes"] != flushes0 + 1:
+                raise AssertionError("RemoteBatchVerifier did not verify "
+                                     "through the server")
+        finally:
+            del os.environ[dclient.ENV_VAR]
+            if dclient._shared is not None:
+                dclient._shared.close()
+                dclient._shared = None
+    finally:
+        for c in clients:
+            c.close()
+        srv.stop()
+    out["stats"] = dict(srv.stats)
+    if srv.stats["flush_failures"]:
+        raise AssertionError(f"device server: flushes failed: {srv.stats}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -915,12 +1223,17 @@ def main(argv=None) -> int:
 
     # phase 2: the chain, from --seed, and the seam's tile
     t0 = time.perf_counter()
-    chain, gen_app = make_chain(args.seed)
+    chain, gen_app = make_chain(args.seed, BLOCKS)
     gen_s = time.perf_counter() - t0
     tile, marshal_s = tile_from_chain(ref, chain, LANES)
     print(f"chain: {BLOCKS} blocks x {VALIDATORS} validators, "
           f"{gen_s:.1f}s to generate; tile: its first {LANES} lanes",
           flush=True)
+    t0 = time.perf_counter()
+    pipe_chain, pipe_app = make_chain(args.seed, PIPE_BLOCKS)
+    pipe_gen_s = time.perf_counter() - t0
+    print(f"pipeline chain: {PIPE_BLOCKS} blocks x {VALIDATORS} validators, "
+          f"{pipe_gen_s:.1f}s to generate", flush=True)
 
     # phase 3: kernels against their plain versions
     report: dict = {}
@@ -936,11 +1249,10 @@ def main(argv=None) -> int:
     e2e: dict = {}
     cv.reset_launches()
     run_main_path(torch, pkg, tile, e2e)
-    seam = _read_path(cv, "seam", rlc)
+    seam = _read_path(cv.LAUNCHES, "seam", rlc)
 
-    cv.reset_launches()
     sync = run_blocksync(torch, pkg, chain, gen_app, args.seed)
-    launches = _read_path(cv, "blocksync", rlc)
+    launches = _read_path(sync["launches"], "blocksync", rlc)
     if sync["tiles_flushed"] != 2 or sync["banned"] or not sync["rlc_pass"]:
         raise AssertionError(f"clean sync: {sync}")
     # the same sync again: twice more timed (the spread within one call),
@@ -948,10 +1260,9 @@ def main(argv=None) -> int:
     sync["repeat_wall_s"] = [
         run_blocksync(torch, pkg, chain, gen_app, args.seed)["wall_s"]
         for _ in range(2)]
-    cv.reset_launches()
-    sync["profiled"] = run_blocksync(torch, pkg, chain, gen_app, args.seed,
-                                     profile=True)["profiled"]
-    counted = {k: cv.LAUNCHES[k] for k in rlc}
+    prof = run_blocksync(torch, pkg, chain, gen_app, args.seed, profile=True)
+    sync["profiled"] = prof["profiled"]
+    counted = {k: prof["launches"][k] for k in rlc}
     profiled = {k: sync["profiled"]["launches_by_kernel"][k] for k in rlc}
     if counted != profiled or counted != {k: launches[k] for k in rlc}:
         raise AssertionError(f"sync launches: counted {counted}, profiled "
@@ -959,17 +1270,32 @@ def main(argv=None) -> int:
 
     s = chain.blocks[6].last_commit.signatures[0].signature
     r_decodes = ref.pt_decompress(bytes([s[0] ^ 1]) + s[1:32]) is not None
-    cv.reset_launches()
     bad = run_blocksync(torch, pkg, chain, gen_app, args.seed, {7: "sig"})
-    bad_launches = _read_path(cv, "blocksync, tampered", rlc)
+    bad_launches = _read_path(bad["launches"], "blocksync, tampered", rlc)
     if not bad["banned"] or bad["banned"][0] not in (6, 7):
         raise AssertionError(f"tampered sync banned {bad['banned']}")
     if r_decodes and not bad["per_lane"]:
         raise AssertionError("the tampered tile was not attributed per lane")
 
+    pipe = run_pipeline(torch, pkg, pipe_chain, pipe_app, args.seed)
+    for d, f in pipe["depths"].items():
+        idle = f["profiled"]["idle_share"]
+        print(f"pipelined catch-up, depth {d}: "
+              f"{f['sigs_per_s']['median']:.1f} sigs/s median "
+              f"({f['sigs_verified']} sigs; wall "
+              f"{', '.join(f'{w:.3f}' for w in f['wall_s']['runs'])} s; "
+              f"card idle "
+              f"{'not measured' if idle is None else f'{idle:.3f}'} of a "
+              f"profiled sync)", flush=True)
+    server = run_device_server(torch, pkg, tile, chain, gen_app, args.seed)
+    print(f"device server: {server['stats']}; two clients of "
+          f"{SERVER_LANES} lanes in {server['two_clients_s']:.3f} s "
+          f"({server['two_clients_flushes']} flush(es)); 48-block sync at "
+          f"depth 2 through it {server['sync']['wall_s']:.3f} s", flush=True)
+
     cv.reset_launches()
     run_pt_add_ab(torch, pkg, add_args, report)
-    ab = _read_path(cv, "pt_add_tiled A/B", ("pt_add_tiled",))
+    ab = _read_path(cv.LAUNCHES, "pt_add_tiled A/B", ("pt_add_tiled",))
 
     # phase 5: report
     kernels = []
@@ -986,6 +1312,10 @@ def main(argv=None) -> int:
             "launches_seam": seam[name],
             "launches_tampered_sync": bad_launches[name],
             "launches_profiled_sync": profiled.get(name),
+            "launches_pipelined_sync": {
+                d: f["launches"][name] for d, f in pipe["depths"].items()},
+            "launches_device_server": server["launches"][name],
+            "launches_server_sync": server["sync"]["launches"][name],
             **{k: r[k] for k in ("launches_per_call",
                                  "launches_per_call_profiled", "lanes", "m")
                if k in r}}
@@ -1015,6 +1345,8 @@ def main(argv=None) -> int:
                         "plain_ms": report[k]["plain_ms"]} for k in KERNELS},
         "blocksync": {"clean": sync, "tampered": bad,
                       "tampered_r_decodes": r_decodes},
+        "pipeline": pipe, "device_server": server,
+        "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,
         "breakdown": where, "lanes": LANES,
         "build_s": build_s, "canary": ped.canary_stats(), "gpu": gpu}}),

@@ -5,6 +5,11 @@
 The default is the card. Asking for cuda where there is none raises: the
 port never carries on on the CPU behind a caller's back. The CPU is used
 only when the caller names it, as the tests do.
+
+The package also holds the port of `cometbft_tpu/device/`: the verify
+device server (`server.py`), its wire (`protocol.py`), its client and
+`RemoteBatchVerifier` (`client.py`), and the health supervisor with its
+canary lanes (`health.py`). Import those modules explicitly.
 """
 
 from __future__ import annotations

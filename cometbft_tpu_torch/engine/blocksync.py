@@ -24,27 +24,36 @@ degenerate case and this module's `_sync_tile` loop.
 Port of `cometbft_tpu/engine/blocksync.py`. What differs:
 - the device is an argument (`device=`, default cuda, resolved once by
   `BlocksyncReactor` and `TiledCommitVerifier`) and is passed down to
-  `verify_batch` and to the respeculation's `verify_commit`; the JAX
-  package takes it from the process;
+  `verify_batch`, to the respeculation's `verify_commit` and to the
+  pipeline's in-process verify backend; the JAX package takes it from
+  the process;
+- with `pipeline_depth > 1` and a backend that verifies in this
+  process (none given, or one that does not declare the device link's
+  `drain_on`), the reactor builds and warms the kernels of its batch
+  bucket when it is constructed on cuda (`prewarm_verify_kernels`), so
+  no first build or first launch lands inside a dispatch under the
+  watchdog's deadline, where a miss raises;
 - branches the port does not carry yet raise NotImplementedError naming
-  their ROADMAP.md item: `pipeline_depth > 1` (pipelined blocksync),
-  mesh routing (COMETBFT_TPU_MESH_VERIFY=1; mesh and multi-GPU), and
-  commits over a non-ed25519 validator set (MixedBatchVerifier and the
-  other key types). Aggregated (BLS) commits never get this far:
-  `Commit.decode` raises on their wire form (aggsig).
+  their ROADMAP.md item: mesh routing (COMETBFT_TPU_MESH_VERIFY exactly
+  "1" on a host with more than one card, the JAX package's
+  `mesh_available`; mesh and multi-GPU), and commits over a non-ed25519
+  validator set (MixedBatchVerifier and the other key types).
+  Aggregated (BLS) commits never get this far: `Commit.decode` raises
+  on their wire form (aggsig).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
-from ..libs.env import env_bool
-from ..ops.ed25519 import verify_batch
+from ..ops.ed25519 import prewarm_verify_kernels, verify_batch
 from ..state.execution import BlockExecutor, BlockValidationError
 from ..state.state import State
 from ..store.blockstore import BlockStore
@@ -136,14 +145,24 @@ def verify_lanes(pubs: Sequence[bytes], msgs: Sequence[bytes],
         return np.array([
             len(p) == 32 and Ed25519PubKey(p).verify_signature(m, s)
             for p, m, s in zip(pubs, msgs, sigs)], dtype=bool)
-    if env_bool("COMETBFT_TPU_MESH_VERIFY", False):
+    if mesh_available():
         # the JAX package routes lanes over every local chip
-        # (parallel/verify.verify_batch_mesh) when this is set
+        # (parallel/verify.verify_batch_mesh) here
         raise NotImplementedError(
             "mesh verification is not ported yet (ROADMAP.md Queue 1: "
             "mesh and multi-GPU)")
     return verify_batch(pubs, msgs, sigs, batch_size=batch_size,
                         device=device)
+
+
+def mesh_available() -> bool:
+    """True when mesh routing is enabled (COMETBFT_TPU_MESH_VERIFY is
+    exactly "1") AND more than one card is present: the rule of the JAX
+    package's `parallel/verify.py:mesh_available`. Otherwise lanes
+    verify on one device."""
+    if os.environ.get("COMETBFT_TPU_MESH_VERIFY") != "1":
+        return False
+    return torch.cuda.device_count() > 1
 
 
 def settle_tile(metas, out, pubs, msgs, sigs, cache=None) -> None:
@@ -216,20 +235,18 @@ class BlocksyncReactor:
     """Sequential-apply, tile-verified catch-up loop
     (reference internal/blocksync/reactor.go poolRoutine).
 
-    `pipeline_depth` > 1 (the JAX package's
-    `pipeline/scheduler.PipelinedBlocksync`, K tiles in flight) is not
-    ported yet and raises; depth=1 is this module's synchronous loop.
-    `device` (default cuda) is where tiles batch-verify; the executor
-    carries its own for the commits it re-verifies."""
+    With `pipeline_depth` > 1 the tile loop runs through
+    `pipeline/scheduler.PipelinedBlocksync` — same stages, K tiles in
+    flight, apply still strictly sequential. depth=1 keeps this module's
+    synchronous loop (the degenerate case). `device` (default cuda) is
+    where tiles batch-verify; the executor carries its own for the
+    commits it re-verifies."""
 
     def __init__(self, executor: BlockExecutor, store: BlockStore,
                  source: PeerSource, chain_id: str, tile_size: int = 32,
                  batch_size: int = 4096, max_retries: int = 3,
-                 pipeline_depth: int = 1, cache=None, device=None):
-        if pipeline_depth > 1:
-            raise NotImplementedError(
-                "pipeline_depth > 1 is not ported yet (ROADMAP.md Queue "
-                "1: pipelined blocksync)")
+                 pipeline_depth: int = 1, backend=None, watchdog=None,
+                 cache=None, metrics=None, supervisor=None, device=None):
         self.executor = executor
         self.store = store
         self.source = source
@@ -237,8 +254,19 @@ class BlocksyncReactor:
                                             cache=cache, device=device)
         self.tile_size = tile_size
         self.max_retries = max_retries
+        self.pipeline_depth = pipeline_depth
+        self.backend = backend      # pipeline verify backend (optional)
+        self.watchdog = watchdog    # pipeline.watchdog.DeviceWatchdog
         self.cache = cache          # pipeline.cache.SigCache
+        self.metrics = metrics      # libs/metrics_gen.PipelineMetrics
+        self.supervisor = supervisor  # device/health.DeviceSupervisor
         self.stats = SyncStats()
+        if (pipeline_depth > 1 and not getattr(backend, "drain_on", ())
+                and batch_size > 0 and self.verifier.device.type == "cuda"):
+            # an in-process backend verifies under the watchdog's
+            # deadline, and a miss raises: build and warm its kernels
+            # now, not there
+            prewarm_verify_kernels(batch_size, device=self.verifier.device)
         # [height, commit, digest|None] of the last tile-verified seal,
         # keyed by the height of the block that CARRIES it as last_commit.
         # Applying a block skips last-commit signature re-verification only
@@ -259,18 +287,31 @@ class BlocksyncReactor:
         retried against (presumably re-routed) fetches, bounded by
         max_retries (reference reactor.go:498-513 bans + requeues)."""
         target = target_height or self.source.max_height()
+        pipe = None
+        step = self._sync_tile
+        if self.pipeline_depth > 1:
+            from ..pipeline.scheduler import PipelinedBlocksync
+            pipe = PipelinedBlocksync(
+                self, depth=self.pipeline_depth, backend=self.backend,
+                watchdog=self.watchdog, metrics=self.metrics,
+                supervisor=self.supervisor)
+            step = pipe.run
         retries = 0
-        while state.last_block_height < target:
-            try:
-                state = self._sync_tile(state, target)
-                retries = 0
-            except (BlockValidationError, SyncStalled):
-                retries += 1
-                if retries > self.max_retries:
-                    raise
+        try:
+            while state.last_block_height < target:
+                try:
+                    state = step(state, target)
+                    retries = 0
+                except (BlockValidationError, SyncStalled):
+                    retries += 1
+                    if retries > self.max_retries:
+                        raise
+        finally:
+            if pipe is not None:
+                pipe.close()
         return state
 
-    # --- stages (the JAX package's pipeline/scheduler shares them) --------
+    # --- stages shared with pipeline/scheduler ----------------------------
 
     def _stall_msg(self, height: int) -> str:
         msg = f"source cannot provide block {height}"

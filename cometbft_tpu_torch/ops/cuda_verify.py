@@ -13,6 +13,8 @@ Dispatch is by the device of the input and nothing else:
 
 `LAUNCHES` counts kernel launches per wrapper (one per launch, nowhere
 else), so a run can show that its main path went through the kernels.
+The count is taken under a lock: the pipelined blocksync and the device
+server launch from threads of their own.
 
 Kernels (sources in cometbft_tpu_torch/csrc/):
 - `pt_decompress_tiled` (pt_decompress.cu): ZIP-215 decode, a lane's
@@ -32,6 +34,8 @@ Kernels (sources in cometbft_tpu_torch/csrc/):
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -46,11 +50,18 @@ N_WINDOWS = A_WINDOWS + R_WINDOWS
 
 LAUNCHES = {"pt_decompress_tiled": 0, "rlc_window_sums": 0,
             "rlc_epilogue": 0, "pt_add_tiled": 0}
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _launches_lock:
+        LAUNCHES[name] += n
 
 
 def pack_point(p) -> torch.Tensor:
@@ -108,7 +119,7 @@ def pt_decompress_tiled(enc: torch.Tensor):
     pt = torch.empty((4, 16, n), dtype=torch.int32, device=enc.device)
     ok = torch.empty((n,), dtype=torch.bool, device=enc.device)
     _launch("pt_decompress", enc.data_ptr(), pt.data_ptr(), ok.data_ptr(), n)
-    LAUNCHES["pt_decompress_tiled"] += 1
+    _count("pt_decompress_tiled")
     return pt, ok
 
 
@@ -171,7 +182,7 @@ def rlc_window_sums(a_pt: torch.Tensor, r_pt: torch.Tensor,
     _launch("rlc_window_sums", a_pt.data_ptr(), r_pt.data_ptr(),
             t_dig.data_ptr(), z_dig.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), n)
-    LAUNCHES["rlc_window_sums"] += 2    # the tables, then the window sums
+    _count("rlc_window_sums", 2)    # the tables, then the window sums
     return out
 
 
@@ -208,7 +219,7 @@ def rlc_epilogue(folded: torch.Tensor, b_tab: torch.Tensor,
     ok = torch.empty((1,), dtype=torch.bool, device=dev)
     _launch("rlc_epilogue", folded.data_ptr(), b_tab.data_ptr(),
             s_dig.data_ptr(), ok.data_ptr(), m)
-    LAUNCHES["rlc_epilogue"] += 1
+    _count("rlc_epilogue")
     return ok[0]
 
 
@@ -248,5 +259,5 @@ def pt_add_tiled(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     _check("q", q, (4, 16, n), torch.int32, p.device)
     out = torch.empty((4, 16, n), dtype=torch.int32, device=p.device)
     _launch("pt_add", p.data_ptr(), q.data_ptr(), out.data_ptr(), n)
-    LAUNCHES["pt_add_tiled"] += 1
+    _count("pt_add_tiled")
     return out

@@ -17,6 +17,10 @@ the host modules under it) held against the JAX package's, on the CPU.
 - `TiledCommitVerifier.verify_tile` gives the same per-commit verdicts on
   a tile mixing clean commits, a tampered signature, a wrong-height
   commit, a malformed signature and an under-2/3 commit.
+- COMETBFT_TPU_MESH_VERIFY verifies on one device, with the JAX
+  package's verdicts, unless it is exactly "1" on a host with more than
+  one card (the JAX package's `mesh_available`); only then does the
+  unported mesh branch raise.
 - Unported branches raise NotImplementedError; device="cuda" raises
   without a card.
 """
@@ -38,6 +42,7 @@ from cometbft_tpu.store.blockstore import BlockStore as JStore
 from cometbft_tpu.types.block import CommitSig as JCommitSig
 
 from cometbft_tpu_torch.abci.kvstore import KVStoreApplication as PApp
+from cometbft_tpu_torch.crypto import ref_ed25519 as ref
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey as PPriv
 from cometbft_tpu_torch.db.kv import MemDB as PMemDB
 from cometbft_tpu_torch.engine import blocksync as pbs
@@ -232,13 +237,10 @@ def test_verify_tile_matches_jax(chains):
 
 def test_unported_branches_raise(chains, monkeypatch):
     _, pchain = chains["main"]
-    app = PApp()
-    executor = PExec(app, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pbs.BlocksyncReactor(executor, PStore(PMemDB()),
-                             pcg.LocalChainSource(pchain), pchain.chain_id,
-                             pipeline_depth=4, device="cpu")
+    # mesh routing: only where the JAX package would take it, the
+    # variable exactly "1" on a host with more than one card
     monkeypatch.setenv("COMETBFT_TPU_MESH_VERIFY", "1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError):
         pbs.verify_lanes([b"\x00" * 32] * 64, [b""] * 64, [b"\x00" * 64] * 64,
                          BATCH, device="cpu")
@@ -250,6 +252,30 @@ def test_unported_branches_raise(chains, monkeypatch):
     agg = pchain.seen_commits[0].encode() + bytes([0x32, 1, 0])  # field 6
     with pytest.raises(NotImplementedError):
         type(pchain.seen_commits[0]).decode(agg)
+
+
+@pytest.mark.parametrize("value", ["1", "true"])
+def test_mesh_switch_verifies_like_jax_on_one_device(chains, monkeypatch,
+                                                     value):
+    """COMETBFT_TPU_MESH_VERIFY set (to "1" on a host with at most one
+    card, or to anything but "1") verifies on one device, as the JAX
+    package's `mesh_available` rule does, with the same verdicts."""
+    jchain, pchain = chains["main"]
+    jent = _mixed_tile(jchain, jbs, JCommitSig)
+    pent = _mixed_tile(pchain, pbs, PCommitSig)
+    pubs, msgs, sigs = [], [], []
+    for e in pent:
+        pbs.marshal_commit(pchain.chain_id, e, pubs, msgs, sigs)
+    monkeypatch.setenv("COMETBFT_TPU_MESH_VERIFY", value)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert not pbs.mesh_available()
+    out = pbs.verify_lanes(pubs, msgs, sigs, BATCH, device="cpu")
+    assert list(out) == list(jbs.verify_lanes(pubs, msgs, sigs, 0))
+    assert list(out) == [ref.verify(*t) for t in zip(pubs, msgs, sigs)]
+    jbs.TiledCommitVerifier(jchain.chain_id, batch_size=0).verify_tile(jent)
+    pbs.TiledCommitVerifier(pchain.chain_id, batch_size=BATCH,
+                            device="cpu").verify_tile(pent)
+    assert [e.commit_ok for e in pent] == [e.commit_ok for e in jent]
 
 
 def test_cuda_requested_without_card_raises():

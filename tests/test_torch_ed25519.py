@@ -242,6 +242,13 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import cometbft_tpu_torch.abci, cometbft_tpu_torch.ingest\n"
         "import cometbft_tpu_torch.trace, cometbft_tpu_torch.libs.fail\n"
         "import cometbft_tpu_torch.crypto.merkle\n"
+        "import cometbft_tpu_torch.device.client\n"
+        "import cometbft_tpu_torch.device.health\n"
+        "import cometbft_tpu_torch.device.protocol\n"
+        "import cometbft_tpu_torch.device.server\n"
+        "import cometbft_tpu_torch.libs.metrics_gen\n"
+        "import cometbft_tpu_torch.pipeline.scheduler\n"
+        "import cometbft_tpu_torch.pipeline.watchdog\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cometbft_tpu' or m.startswith('cometbft_tpu.')]\n"
         "assert not bad, bad\n")
