@@ -34,8 +34,10 @@ Phases; any failure exits non-zero:
    8192 lanes; decompression, window sums and additions again at 200
    lanes, a count that divides none of their blocks, so each kernel's
    masking of its ragged edge runs, and window sums at 3,000 lanes
-   (three chunks, the last part empty). The yardsticks must agree with
-   the kernels. Integers allow no tolerance: every error must be 0.
+   (three chunks, the last part empty); the epilogue's cases again on
+   the partials of those 3,000 and 200 lanes (M = 4, and M = 1, the M
+   of every light-client flush and mixed-set bucket). The yardsticks
+   must agree with the kernels. Integers allow no tolerance: every error must be 0.
    Then every kernel, the yardsticks, the decompression at 8,192 lanes
    and the epilogue at M = 128 run under one torch.profiler session: one
    counted call each (the launch counter must equal the profiler's count
@@ -63,9 +65,9 @@ Phases; any failure exits non-zero:
      6 and the sync still reaches 48;
    - the pipelined catch-up over the 121-block chain, through
      `BlocksyncReactor(pipeline_depth=K)` with a DeviceWatchdog and a
-     DeviceSupervisor (canary lanes on): K = 1, 2 and 4, three timed
-     syncs each in alternating order (1, 2, 4, then 4, 2, 1, then 1, 2,
-     4), every run kept, each with the main thread's and the process's
+     DeviceSupervisor (canary lanes on): K = 1, 2 and 4, two timed
+     syncs each in alternating order (1, 2, 4, then 4, 2, 1), every run
+     kept, each with the main thread's and the process's
      CPU time and every `verify_lanes` call's wall and CPU time on the
      thread that made it (`VerifyClock`: the difference is time spent
      waiting for the interpreter lock or the card); one profiled sync
@@ -83,6 +85,33 @@ Phases; any failure exits non-zero:
      one `create_batch_verifier` call with COMETBFT_TPU_DEVICE_SERVER
      set, which must give a `RemoteBatchVerifier` that verifies through
      the server. No flush may fail;
+   - the light client (`light/`) over the 48-block chain, each pass
+     with a fresh signature cache and its own launch counts, which must
+     equal each RLC kernel's measured launches per call times the RLC
+     verifies the pass made (its flushes and canary runs; a pass whose
+     lanes all hit the cache made none and fails): a sequential client
+     from height 1 to the tip (48 flushes; headers/s, ms a header; and
+     its first 8 headers again under torch.profiler: the card's idle
+     share), a
+     skipping client trusted at height 24 that jumps to the tip and
+     walks back to height 12, a witness that serves a forged tip header
+     (ConflictingHeadersError; its attack evidence through the wire
+     form and back), and a primary whose commit carries a tampered
+     signature (rejected, the flush attributed per lane);
+   - a mixed-curve validator set of MIXED_SET (120 ed25519, 15 sr25519,
+     15 secp256k1 keys from --seed) and four commits it signs over the
+     chain's block ids, each pass counted the same way: the
+     `MixedBatchVerifier` seam, clean and with one tampered lane of each
+     curve (lane by lane equal to the oracles), `verify_commit` clean
+     and with a tampered sr25519 lane, one `verify_tile` of 40 of the
+     chain's commits and the four mixed ones (the right verdict each),
+     and the set through the state JSON and back; then a chain of
+     MIXED_BLOCKS blocks over the set less its sr25519 keys (135
+     validators, built by hand as `generate_chain` builds one), synced
+     through `BlocksyncReactor(pipeline_depth=2)` in tiles of two
+     blocks: every commit verified at marshal, one flush per commit with
+     an ed25519 proposer; and once with a tampered signature, which
+     must ban height 3 or 4;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
@@ -90,10 +119,12 @@ Phases; any failure exits non-zero:
    and call times, bounds, and for the two redesigned per-lane kernels
    the one-thread parent's device time from the same rounds;
    `rlc_window_sums` counts two launches a call, and the launches of the
-   pipelined syncs and of the device server's paths), a timing line
-   with the catch-up sigs/s and where the sync's time goes, the
-   pipelined depths' medians and spreads and the server's stats, the
-   card's name and power limit, and last {"ok": true, "device": {...}}.
+   pipelined syncs, of the device server's paths, of the light client
+   and of the mixed set), a timing line with the catch-up sigs/s and
+   where the sync's time goes, the pipelined depths' medians and
+   spreads, the server's stats, the light client's headers/s and the
+   mixed set's pass times, the card's name and power limit, and last
+   {"ok": true, "device": {...}}.
 
 Without a CUDA card, or without the package beside it, it exits non-zero
 and prints no result.
@@ -103,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -121,11 +153,22 @@ RAGGED = 200          # a lane count that divides no block of the kernels
 CHUNKS = 3000         # window sums over three chunks, the last part empty
 PIPE_BLOCKS = 121     # three full 40-block tiles (24,000 sigs) and one more
 DEPTHS = (1, 2, 4)    # pipeline depths of the pipelined catch-up
-PIPE_REPEATS = 3      # timed syncs per depth, in alternating order
+PIPE_REPEATS = 2      # timed syncs per depth, in alternating order
 PROFILE_TRIES = 3     # profiled syncs per depth until one misses nothing
 PROFILE_TAIL_S = 0.2  # a profile stays open this long past its synchronize
 SERVER_LANES = 4000   # lanes each of the two device-server clients sends
 SERVER_FLUSH_US = 20_000  # coalescing window: both clients share a flush
+# light-client headers verified under torch.profiler: each is ~29,000
+# launches, and a profile of all 47 lengthened the run by minutes
+PROFILED_HEADERS = 8
+# the mixed-curve set: the VerifyCommit configuration's 150 validators
+# (BASELINE.json), by key type
+MIXED_SET = {"ed25519": 120, "sr25519": 15, "secp256k1": 15}
+# the mixed set's chain (its sr25519 keys left out: the validator-set
+# hash has no sr25519 form), synced at depth 2 in tiles of two blocks
+MIXED_BLOCKS = 6
+MIXED_TILE = 2
+MIXED_CHAIN_ID = "mixed-chain"
 INT32_MAD_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x clock
 HBM_BYTES_PER_S = 3.35e12
 # The least int32 multiply-adds per field operation: a 32x32->64-bit
@@ -466,16 +509,26 @@ def check_kernels(torch, pkg, tile, dev, report, yard):
     a_pt, r_pt = pts[..., :n], pts[..., n:]
     a_ok, r_ok = oks[:n], oks[n:]
     k = ped._challenge(t[2], t[3])
-    _, s_sum, z16, tk = ped._scalar_side(s, pkg["sc"].sc_lt_l(s), a_ok, r_ok,
-                                         k, t[4])
+    s_ok = pkg["sc"].sc_lt_l(s)
+    _, s_sum, z16, tk = ped._scalar_side(s, s_ok, a_ok, r_ok, k, t[4])
     ws_args = (ped._neg_packed(a_pt), ped._neg_packed(r_pt),
                pkg["sc"].sc_nibbles(tk).to(torch.int32).contiguous(),
                pkg["sc"].sc_nibbles(z16)[:ped.ZWIN].to(torch.int32)
                .contiguous())
     err, out = _hold_window_sums(torch, pkg, ws_args)
-    err_r = max(_hold_window_sums(
-        torch, pkg, tuple(a[..., :k].contiguous() for a in ws_args))[0]
-        for k in (CHUNKS, RAGGED))
+    # the first CHUNKS and RAGGED lanes are RLC batches of their own: their
+    # partials and their [S]B digits are the epilogue's inputs at M = 4 and
+    # M = 1 (a flush of one LANE_TILE chunk, as the light client and the
+    # mixed set's ed25519 bucket make it)
+    small, err_r = [], 0
+    for nl in (CHUNKS, RAGGED):
+        e, o = _hold_window_sums(
+            torch, pkg, tuple(a[..., :nl].contiguous() for a in ws_args))
+        _, s_nl, _, _ = ped._scalar_side(
+            s[..., :nl], s_ok[:nl], a_ok[:nl], r_ok[:nl], k[..., :nl],
+            t[4][:nl])
+        small.append((cv.fold_partials(o), s_nl))
+        err_r = max(err_r, e)
     # the least work: each table 7 doublings (even entries) and 7
     # additions (odd ones), then N - G additions per window
     g = cv.n_tiles(n)
@@ -512,32 +565,24 @@ def check_kernels(torch, pkg, tile, dev, report, yard):
         "max_abs_err": max(err, err_r),
         "bound": _bound_ms(n * MADS_ADD, 3 * n * PT_BYTES)}
 
-    # epilogue: the clean tile cancels (True); a changed [S]B digit and an
-    # uncancelled point in one window do not (False); the Horner case
-    # cancels only through every window (True), its variant does not
+    # epilogue at M = 8 (the tile), 4 (CHUNKS lanes) and 1 (RAGGED lanes)
     b_tab = torch.as_tensor(ed.small_base_table(), device=dev)
     folded = cv.fold_partials(out)
     m = folded.shape[-1]
     sdig = pkg["sc"].sc_nibbles(s_sum).to(torch.int32).contiguous()
-    sdig_bad = sdig.clone()
-    sdig_bad[0] = (sdig_bad[0] + 1) % 16
-    loose = folded.clone()      # [12345]B (prime order) into one partial
-    _set_point(torch, pkg, loose, 9, 0, 12345, dev)
-    cases = [(folded, sdig, True), (folded, sdig_bad, False),
-             (loose, sdig, False), *_horner_cases(torch, pkg, m, dev)]
-    err = 0
-    for f, sd, want in cases:
-        got = bool(cv.rlc_epilogue(f, b_tab, sd))
-        plain = bool(cv.rlc_epilogue_plain(f, b_tab, sd))
-        err = max(err, abs(int(got) - int(plain)))
-        if not got == plain == want:
-            raise AssertionError(f"rlc_epilogue {got}/{plain}, want {want}")
+    err = _hold_epilogue(torch, pkg, folded, sdig, b_tab, dev)
+    ms = [m]
+    for f, s_nl in small:
+        err = max(err, _hold_epilogue(
+            torch, pkg, f, pkg["sc"].sc_nibbles(s_nl).to(torch.int32)
+            .contiguous(), b_tab, dev))
+        ms.append(f.shape[-1])
     # like for like with M = 128: the same partials, identity points after
     m128 = torch.cat([folded, _identity_partials(torch, 128 - m, dev)], -1)
     if not bool(cv.rlc_epilogue(m128, b_tab, sdig)):
         raise AssertionError("rlc_epilogue at M = 128 rejects the clean tile")
     report["rlc_epilogue"] = {
-        "max_abs_err": err, "m": m,
+        "max_abs_err": err, "m": m, "m_held": ms,
         "call_ms": _median_ms(
             torch, lambda: cv.rlc_epilogue(folded, b_tab, sdig), 10),
         "plain_ms": _median_ms(
@@ -561,6 +606,31 @@ def check_kernels(torch, pkg, tile, dev, report, yard):
         ("pt_add_tiled@lanes8", lambda: cv.pt_add_tiled(*add8)),
     ], report)
     return add_args
+
+
+def _hold_epilogue(torch, pkg, folded, sdig, b_tab, dev) -> int:
+    """rlc_epilogue against its plain version on one batch's partials
+    (4, 16, 96, M) and [S]B digits: the clean batch cancels (True); a
+    changed [S]B digit and an uncancelled point in one window do not
+    (False); the Horner case cancels only through every window (True),
+    its variant does not. -> error."""
+    cv = pkg["cv"]
+    m = folded.shape[-1]
+    sdig_bad = sdig.clone()
+    sdig_bad[0] = (sdig_bad[0] + 1) % 16
+    loose = folded.clone()      # [12345]B (prime order) into one partial
+    _set_point(torch, pkg, loose, 9, 0, 12345, dev)
+    cases = [(folded, sdig, True), (folded, sdig_bad, False),
+             (loose, sdig, False), *_horner_cases(torch, pkg, m, dev)]
+    err = 0
+    for f, sd, want in cases:
+        got = bool(cv.rlc_epilogue(f, b_tab, sd))
+        plain = bool(cv.rlc_epilogue_plain(f, b_tab, sd))
+        err = max(err, abs(int(got) - int(plain)))
+        if not got == plain == want:
+            raise AssertionError(
+                f"rlc_epilogue at M = {m}: {got}/{plain}, want {want}")
+    return err
 
 
 def _epilogue_bound(m: int) -> tuple:
@@ -647,24 +717,13 @@ def _source_fns(name: str) -> set:
                           (csrc / KERNELS[name][0]).read_text()))
 
 
-def profile_kernels(torch, cv, yard, jobs, report) -> None:
-    """Every job (label, call) under one torch.profiler session: first
-    one call of each with its launch count zeroed and read after it, then
-    ROUNDS rounds of one call of each job in turn. A label is a wrapper's
-    name, or the name and a tag: `one_thread` for the yardstick of
-    ONE_THREAD_CU, any other tag for the wrapper on other inputs.
-
-    The device events named after a source's `__global__` functions must
-    number (1 + ROUNDS) times the launches counted for its jobs. A job's
-    device time is the median over the rounds of the summed durations of
-    its launches in a round (both launches of `rlc_window_sums`)."""
+def _profile_jobs(torch, cv, yard, jobs, fns_of):
+    """One profile session of `profile_kernels`. -> (launches counted
+    per job, device-event durations per source's function set, the
+    position of the first timed round in each, and a description of
+    each set whose events do not number (1 + ROUNDS) times its counted
+    launches)."""
     from torch.profiler import ProfilerActivity, profile
-
-    def fns_of(label):
-        base, _, tag = label.partition("@")
-        return frozenset({ONE_THREAD_FNS[base]} if tag == "one_thread"
-                         else _source_fns(base))
-
     counts = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -680,6 +739,7 @@ def profile_kernels(torch, cv, yard, jobs, report) -> None:
             for _label, fn in jobs:
                 fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_TAIL_S)
     events = sorted((e.time_range.start, _kernel_name(e),
                      e.time_range.elapsed_us()) for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -690,13 +750,52 @@ def profile_kernels(torch, cv, yard, jobs, report) -> None:
             queues[fs] = [us for _t, name, us in events if name in fs]
             pos[fs] = 0
         pos[fs] += counts[label]              # the counted call comes first
+    lost = []
     for fs, q in queues.items():
         own = [label for label, _fn in jobs if fns_of(label) == fs]
         want = (1 + ROUNDS) * sum(counts[label] for label in own)
-        if len(q) != want or len({counts[label] for label in own}) != 1:
+        if len({counts[label] for label in own}) != 1:
+            raise AssertionError(f"{sorted(fs)}: launches per call differ "
+                                 f"between jobs: {counts}")
+        if len(q) != want:
             seen = {label: counts[label] for label in own}
-            raise AssertionError(f"{sorted(fs)}: the profiler saw {len(q)} "
-                                 f"launches, the counters {want} ({seen})")
+            lost.append(f"{sorted(fs)}: the profiler saw {len(q)} "
+                        f"launches, the counters {want} ({seen})")
+    return counts, queues, pos, lost
+
+
+def profile_kernels(torch, cv, yard, jobs, report) -> None:
+    """Every job (label, call) under one torch.profiler session: first
+    one call of each with its launch count zeroed and read after it, then
+    ROUNDS rounds of one call of each job in turn. A label is a wrapper's
+    name, or the name and a tag: `one_thread` for the yardstick of
+    ONE_THREAD_CU, any other tag for the wrapper on other inputs.
+
+    The device events named after a source's `__global__` functions must
+    number (1 + ROUNDS) times the launches counted for its jobs; a
+    session where the profiler lost some runs again, up to PROFILE_TRIES
+    sessions. A job's device time is the median over the rounds of the
+    summed durations of its launches in a round (both launches of
+    `rlc_window_sums`)."""
+
+    def fns_of(label):
+        base, _, tag = label.partition("@")
+        return frozenset({ONE_THREAD_FNS[base]} if tag == "one_thread"
+                         else _source_fns(base))
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        counts, queues, pos, lost = _profile_jobs(torch, cv, yard, jobs,
+                                                  fns_of)
+        if not lost:
+            break
+        # the profiler dropped device events (on an H100 it once saw 41
+        # of 42 decompression launches): the times would be
+        # misassigned, so the whole session runs again
+        print(f"profile_kernels: try {attempt} of {PROFILE_TRIES} lost "
+              f"device events: {lost}", flush=True)
+    else:
+        raise AssertionError(f"every profile lost device events: {lost}")
+    report["profile_tries"] = attempt
     per: dict = {label: [] for label, _fn in jobs}
     for _ in range(ROUNDS):
         for label, _fn in jobs:
@@ -824,9 +923,9 @@ def run_pt_add_ab(torch, pkg, add_args, report) -> None:
 
 def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
                   profile=False, depth=1, guards=False,
-                  backend=None) -> dict:
+                  backend=None, tile=TILE, per_call=None) -> dict:
     """One catch-up from genesis over the chain on the card, through
-    `BlocksyncReactor.sync` at `pipeline_depth=depth` (tile 40, batch
+    `BlocksyncReactor.sync` at `pipeline_depth=depth` (tile `tile`, batch
     8192, a fresh SigCache); checks the final state against the
     generator's and returns the sync's figures: the time spent in each
     span, and the kernel launches of the sync alone (the counts are
@@ -837,7 +936,10 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
     happen. `backend` is the pipeline's verify backend (default: the
     reactor's in-process one). `profile` runs the sync under
     torch.profiler and adds its kernel launches and device-busy seconds
-    (the wall then carries the profiler's cost)."""
+    (the wall then carries the profiler's cost). With `per_call` (the
+    RLC kernels' launches a flush), an unprofiled sync is counted as
+    `FlushCount` counts a pass: every launch must belong to a flush or a
+    canary run, and `flush_count` holds its flushes."""
     from cometbft_tpu_torch import trace
     from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
     from cometbft_tpu_torch.db.kv import MemDB
@@ -861,7 +963,7 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
     watchdog = DeviceWatchdog(supervisor=supervisor) if guards else None
     reactor = BlocksyncReactor(
         BlockExecutor(app, device="cuda"), BlockStore(MemDB()), src,
-        chain.chain_id, tile_size=TILE, batch_size=LANES, cache=SigCache(),
+        chain.chain_id, tile_size=tile, batch_size=LANES, cache=SigCache(),
         pipeline_depth=depth, backend=backend, watchdog=watchdog,
         supervisor=supervisor, device="cuda")
     state = State.from_genesis(chain.genesis)
@@ -875,6 +977,8 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
     try:
         torch.cuda.synchronize()
         cv.reset_launches()
+        count = FlushCount(torch, pkg, per_call) \
+            if per_call is not None and not profile else None
         if profile:
             names: dict = {}
             # the RLC kernels' events in start order, a flush reading
@@ -933,6 +1037,9 @@ def run_blocksync(torch, pkg, chain, gen_app, seed, corrupt=None,
            "launches": counted, "span_s": span_s,
            **{k: out[k] for k in ("profiled", "main_cpu_s", "process_cpu_s")
               if k in out}}
+    if count is not None:
+        fig["flush_count"] = count.read(f"sync of {chain.chain_id}, depth "
+                                        f"{depth}")
     if guards:
         fig["guards"] = {
             "watchdog_trips": watchdog.trips,
@@ -1177,6 +1284,469 @@ def run_device_server(torch, pkg, tile, chain, gen_app, seed) -> dict:
     return out
 
 
+class FlushCount:
+    """The RLC verifies one path makes, read from the launch counters:
+    zeroed (with the canary's and the host protocol's counters noted)
+    when it is made, read by `read` just after the path. Every RLC
+    verify (`verify_rlc_core_cuda`: a dispatch of `verify_batch`, or a
+    canary run before one) launches each RLC kernel its measured
+    `launches_per_call` times, and nothing else launches them: the
+    counts must be exactly that many, and a path that made no flush
+    (every lane a signature-cache hit) fails."""
+
+    def __init__(self, torch, pkg, per_call: dict):
+        self.torch, self.cv, self.ped = torch, pkg["cv"], pkg["ped"]
+        self.per_call = per_call
+        torch.cuda.synchronize()
+        self.cv.reset_launches()
+        self.c0 = self.ped.canary_stats()
+        self.s0 = dict(self.ped.STATS)
+
+    def read(self, path: str, want_flushes=None) -> dict:
+        self.torch.cuda.synchronize()
+        launches = dict(self.cv.LAUNCHES)
+        c1 = self.ped.canary_stats()
+        flushes = c1["dispatches"] - self.c0["dispatches"]
+        canaries = c1["runs"] - self.c0["runs"]
+        stats = {k: self.ped.STATS[k] - self.s0[k] for k in self.s0}
+        got = {k: launches[k] for k in self.per_call}
+        want = {k: n * (flushes + canaries) for k, n in self.per_call.items()}
+        if not flushes or got != want or \
+                sum(stats.values()) != flushes or \
+                (want_flushes is not None and flushes != want_flushes):
+            raise AssertionError(
+                f"{path}: {flushes} flushes (want {want_flushes}) and "
+                f"{canaries} canary runs, RLC launches {got}, want {want}, "
+                f"host protocol {stats}")
+        return {"flushes": flushes, "canaries": canaries, **stats,
+                "launches": launches}
+
+
+def run_light_client(torch, pkg, chain, per_call: dict) -> dict:
+    """The light client over the chain, on the card, each pass with a
+    fresh signature cache (the generator and the syncs filled it) and
+    its own launch counts: a sequential client from trusted height 1 to
+    the tip (the trust root and every adjacent header, one flush each);
+    a skipping client trusted at the middle of the chain, one
+    non-adjacent jump to the tip (a 1/3 trusting check and a +2/3 check)
+    and the backwards walk to a height below its trust root (hash links,
+    no flush); a witness that serves a forged header at the tip, which
+    must raise ConflictingHeadersError with evidence that survives its
+    wire form; a primary whose commit carries a tampered signature,
+    which must be rejected (the flush attributed per lane)."""
+    from cometbft_tpu_torch.db.kv import MemDB
+    from cometbft_tpu_torch.engine.chain_gen import ChainLightProvider
+    from cometbft_tpu_torch.light import (LightBlock, LightClient,
+                                          LightStore, SignedHeader,
+                                          TrustOptions)
+    from cometbft_tpu_torch.light.client import ConflictingHeadersError
+    from cometbft_tpu_torch.light.verifier import ErrInvalidHeader
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.types.evidence import decode_evidence
+    from cometbft_tpu_torch.types.proto import Timestamp
+    top = chain.max_height()
+    mid = top // 2
+    now = Timestamp(1_700_000_000 + top + 5, 0)
+
+    class Primary(ChainLightProvider):
+        """The chain's light blocks; at height `forge` a forged header
+        with the original commit (a lying witness), at height `bad_sig`
+        a commit with a bit of one signature flipped (a lying
+        primary)."""
+
+        def __init__(self, forge=None, bad_sig=None):
+            super().__init__(chain)
+            self.forge, self.bad_sig = forge, bad_sig
+
+        def light_block(self, height):
+            lb = super().light_block(height)
+            sh = lb.signed_header
+            if lb.height == self.forge:
+                hdr = dataclasses.replace(sh.header, app_hash=b"\x66" * 32)
+                return LightBlock(SignedHeader(hdr, sh.commit),
+                                  lb.validator_set)
+            if lb.height == self.bad_sig:
+                sigs = list(sh.commit.signatures)
+                s = sigs[5].signature
+                sigs[5] = dataclasses.replace(
+                    sigs[5], signature=s[:40] + bytes([s[40] ^ 1]) + s[41:])
+                commit = dataclasses.replace(sh.commit, signatures=sigs)
+                return LightBlock(SignedHeader(sh.header, commit),
+                                  lb.validator_set)
+            return lb
+
+    def client(root=1, sequential=False, primary=None, witnesses=()):
+        opts = TrustOptions(period_seconds=10**9, height=root,
+                            hash=chain.blocks[root - 1].hash())
+        return LightClient(chain.chain_id, opts, primary or Primary(),
+                           list(witnesses), LightStore(MemDB()),
+                           sequential=sequential, now_fn=lambda: now,
+                           device="cuda")
+
+    out: dict = {"headers": top, "validators": VALIDATORS}
+    reset_shared_cache()
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    lc = client(sequential=True)
+    lb = lc.verify_light_block_at_height(top)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if lb.header.hash() != chain.blocks[-1].hash() or any(
+            lc.trusted_light_block(h) is None for h in range(1, top + 1)):
+        raise AssertionError("sequential light client: wrong tip or a gap")
+    out["sequential"] = {
+        "wall_s": wall, "headers_per_s": top / wall,
+        "ms_per_header": wall / top * 1e3,
+        **count.read("light client, sequential", want_flushes=top)}
+    # its first PROFILED_HEADERS headers past the trust root again, under
+    # torch.profiler: the card's busy time and idle share (the wall
+    # carries the profiler's cost)
+    reset_shared_cache()
+    lc = client(sequential=True)
+    launches, busy_us, wall = _device_kernels(
+        torch, lambda: lc.verify_light_block_at_height(PROFILED_HEADERS + 1))
+    out["sequential"]["profiled"] = {
+        "headers": PROFILED_HEADERS, "kernel_launches": launches,
+        "device_busy_s": busy_us / 1e6, "wall_s": wall,
+        "idle_share": 1 - busy_us / 1e6 / wall}
+
+    reset_shared_cache()
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    lc = client(root=mid)
+    lb = lc.verify_light_block_at_height(top)
+    low = lc.verify_light_block_at_height(mid // 2)
+    torch.cuda.synchronize()
+    if lb.header.hash() != chain.blocks[-1].hash() or \
+            low.header.hash() != chain.blocks[mid // 2 - 1].hash() or \
+            lc.trusted_light_block(mid + 1) is not None:
+        raise AssertionError("skipping light client: wrong headers")
+    out["skipping_and_backwards"] = {
+        "wall_s": time.perf_counter() - t0, "root": mid,
+        "backwards_to": mid // 2,
+        **count.read("light client, skipping and backwards",
+                     want_flushes=3)}
+
+    reset_shared_cache()
+    count = FlushCount(torch, pkg, per_call)
+    lc = client(witnesses=[Primary(forge=top)])
+    try:
+        lc.verify_light_block_at_height(top)
+        raise AssertionError("a forged witness header went unnoticed")
+    except ConflictingHeadersError as e:
+        ev = e.evidence
+        back = decode_evidence(ev.encode())
+        if back.hash() != ev.hash() or back.encode() != ev.encode() or \
+                lc.trusted_light_block(top) is not None:
+            raise AssertionError("attack evidence did not survive its wire "
+                                 "form, or the disputed header stayed")
+        out["forged_witness"] = {
+            "error": type(e).__name__, "common_height": ev.common_height,
+            "byzantine": len(ev.byzantine_validators),
+            "evidence_bytes": len(ev.encode()),
+            **count.read("light client, forged witness", want_flushes=3)}
+
+    reset_shared_cache()
+    count = FlushCount(torch, pkg, per_call)
+    lc = client(sequential=True, primary=Primary(bad_sig=2))
+    try:
+        lc.verify_light_block_at_height(2)
+        raise AssertionError("a tampered commit signature was accepted")
+    except ErrInvalidHeader as e:
+        out["tampered_commit"] = {
+            "error": type(e).__name__, "trusted_2": lc.trusted_light_block(2)
+            is not None,
+            **count.read("light client, tampered commit", want_flushes=2)}
+    if out["tampered_commit"]["trusted_2"] or \
+            out["tampered_commit"]["per_lane"] != 1:
+        raise AssertionError(f"tampered commit: {out['tampered_commit']}")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in (
+        "sequential", "skipping_and_backwards", "forged_witness",
+        "tampered_commit")) for k in KERNELS}
+    return out
+
+
+def _mixed_keys(seed: int):
+    """MIXED_SET's private keys, drawn from the seed, in a shuffled
+    order: (key type, private key)."""
+    from cometbft_tpu_torch.crypto.keys import privkey_from_type_bytes
+    from cometbft_tpu_torch.crypto.secp256k1 import N as SECP_N
+    rng = np.random.default_rng(seed)
+    keys = []
+    for key_type, n in MIXED_SET.items():
+        for _ in range(n):
+            raw = rng.bytes(64 if key_type == "sr25519" else 32)
+            while key_type == "secp256k1" and \
+                    not 1 <= int.from_bytes(raw, "big") < SECP_N:
+                raw = rng.bytes(32)
+            keys.append((key_type, privkey_from_type_bytes(key_type, raw)))
+    return [keys[i] for i in rng.permutation(len(keys))]
+
+
+def _oracle(key_type, pub, msg, sig, ref) -> bool:
+    """One signature's verdict on the host: the ed25519 oracle, or the
+    key's own single verify."""
+    if key_type == "ed25519":
+        return ref.verify(pub.bytes_(), msg, sig)
+    return pub.verify_signature(msg, sig)
+
+
+def _host_costs(keys, ref, reps: int = 5) -> dict:
+    """Median host ms of one signature and one single verify of a
+    120-byte message, per key type (the first key of each type), and of
+    the ed25519 oracle's verify: what a mixed commit's lanes that do not
+    batch on the card cost."""
+    msg = bytes(range(120))
+    out = {}
+    for key_type in MIXED_SET:
+        key = next(k for t, k in keys if t == key_type)
+        pub = key.pub_key()
+        sign, verify = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            sig = key.sign(msg)
+            t1 = time.perf_counter()
+            if not _oracle(key_type, pub, msg, sig, ref):
+                raise AssertionError(f"{key_type}: own signature rejected")
+            verify.append((time.perf_counter() - t1) * 1e3)
+            sign.append((t1 - t0) * 1e3)
+        out[key_type] = {"sign_ms": float(np.median(sign)),
+                         "verify_ms": float(np.median(verify))}
+    return out
+
+
+def make_mixed_chain(keys, n_blocks: int):
+    """A chain of `n_blocks` blocks over the mixed set less its sr25519
+    keys, built as `generate_chain` builds one (the executor on the
+    card; 2 txs a block) over a genesis of typed keys: no application
+    admits a secp256k1 key through a validator update, in either
+    package, so a mixed set enters a chain only at its genesis. -> (the
+    chain, the generator's app)."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.engine.chain_gen import (GeneratedChain,
+                                                     sign_commit)
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import GenesisDoc, State
+    from cometbft_tpu_torch.types.block import BlockID, Commit
+    from cometbft_tpu_torch.types.proto import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator
+    privs = [k for t, k in keys if t != "sr25519"]
+    by_addr = {k.pub_key().address(): k for k in privs}
+    gen = GenesisDoc(chain_id=MIXED_CHAIN_ID,
+                     validators=[Validator(k.pub_key(), 10) for k in privs],
+                     genesis_time=Timestamp(1_700_000_000, 0))
+    state = State.from_genesis(gen)
+    app = KVStoreApplication()
+    app.init_chain(MIXED_CHAIN_ID, gen.initial_height, [], b"")
+    executor = BlockExecutor(app, device="cuda")
+    blocks, block_ids, commits, valsets = [], [], [], []
+    last_commit = Commit()
+    for h in range(1, n_blocks + 1):
+        block = state.make_block(
+            h, [f"k{h}-{i}=v{h}-{i}".encode() for i in range(2)],
+            last_commit, state.validators.get_proposer().address,
+            timestamp=Timestamp(1_700_000_000 + h, 0))
+        block_id = BlockID(block.hash(), block.make_part_set().header)
+        commit = sign_commit(MIXED_CHAIN_ID, h, 0, block_id,
+                             state.validators, by_addr)
+        valsets.append(state.validators.copy())
+        state, _ = executor.apply_block(state, block_id, block)
+        blocks.append(block)
+        block_ids.append(block_id)
+        commits.append(commit)
+        last_commit = commit
+    return GeneratedChain(chain_id=MIXED_CHAIN_ID, genesis=gen,
+                          blocks=blocks, block_ids=block_ids,
+                          seen_commits=commits, keys=by_addr,
+                          valsets=valsets), app
+
+
+def run_mixed_sync(torch, pkg, keys, seed: int, per_call: dict) -> dict:
+    """The mixed set's chain (`make_mixed_chain`) synced from genesis
+    through `BlocksyncReactor(pipeline_depth=2)` on the card, with the
+    watchdog and the supervisor, in tiles of MIXED_TILE blocks: every
+    commit is verified at marshal on the main thread (a `DecidedSeal`;
+    its ed25519 bucket one flush, where the height's proposer holds an
+    ed25519 key) while the worker settles the tile before. Clean: it
+    must reach the generator's state with no ban and make exactly one
+    flush per such commit. Then with the first signature of height 4's
+    last commit tampered: the peer is banned at height 3 or 4 and the
+    sync still reaches the tip. The worker's tiles hold no lanes: a
+    chain over a mixed set has no commit over an ed25519-only one."""
+    t0 = time.perf_counter()
+    mchain, mapp = make_mixed_chain(keys, MIXED_BLOCKS)
+    out: dict = {"blocks": MIXED_BLOCKS, "tile": MIXED_TILE,
+                 "validators": len(mchain.valsets[0].validators),
+                 "chain_s": time.perf_counter() - t0}
+    n_vals = out["validators"]
+    for name, corrupt in (("clean", None), ("tampered", {4: "sig"})):
+        fig = run_blocksync(torch, pkg, mchain, mapp, seed, corrupt,
+                            depth=2, guards=True, tile=MIXED_TILE,
+                            per_call=per_call)
+        flushes = fig["flush_count"]["flushes"]
+        if corrupt is None:
+            commits = fig["sigs_verified"] // n_vals
+            want = sum(mchain.valsets[h].get_proposer().pub_key.type_()
+                       == "ed25519" for h in range(commits))
+            if fig["banned"] or fig["tiles_flushed"] < 3 or \
+                    commits < MIXED_BLOCKS - 1 or flushes != want:
+                raise AssertionError(
+                    f"clean mixed sync: {commits} commits, {flushes} "
+                    f"flushes (want {want}), {fig}")
+        elif not fig["banned"] or fig["banned"][0] not in (3, 4):
+            raise AssertionError(f"tampered mixed sync banned "
+                                 f"{fig['banned']}")
+        out[name] = {k: fig[k] for k in (
+            "wall_s", "sigs_verified", "tiles_flushed", "banned", "rlc_pass",
+            "per_lane", "launches", "flush_count", "guards", "span_s")}
+    return out
+
+
+def run_mixed_set(torch, pkg, chain, seed: int, per_call: dict) -> dict:
+    """A mixed-curve validator set of MIXED_SET's size (the VerifyCommit
+    configuration's 150), its keys drawn from the seed; four commits it
+    signs over the block ids of the chain's heights 1-4 (no chain can
+    carry such a set: the validator-set hash has no sr25519 key form),
+    an ed25519 validator its proposer.
+    On the card, each pass with a fresh signature cache and its own
+    launch counts: the `MixedBatchVerifier` seam, a clean 150-lane flush
+    and one with a tampered lane of each curve, lane-exact against the
+    oracles; `validation.verify_commit` on a clean and on a tampered
+    commit; `TiledCommitVerifier.verify_tile` on one tile of 40 of the
+    chain's ed25519 commits and the mixed ones (one clean, one with a
+    tampered secp256k1 lane, one clean, one with a tampered ed25519
+    lane); the set through the state JSON and back."""
+    from cometbft_tpu_torch.crypto.batch import MixedBatchVerifier
+    from cometbft_tpu_torch.engine.blocksync import (TileEntry,
+                                                     TiledCommitVerifier)
+    from cometbft_tpu_torch.engine.chain_gen import sign_commit
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.state import state as st
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.types.block import CommitSig
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    ref = pkg["ref"]
+    keys = _mixed_keys(seed)
+    members = [Validator(k.pub_key(), 10) for _t, k in keys]
+    # the proposer's key type decides whether a commit batch-verifies at
+    # all (a secp256k1 proposer sends every lane down the per-signature
+    # path, in the JAX package too): this height's is an ed25519 one
+    vals = ValidatorSet(members, proposer=min(
+        (v for v in members if v.pub_key.type_() == "ed25519"),
+        key=lambda v: v.address))
+    by_addr = {k.pub_key().address(): k for _t, k in keys}
+    types = [v.pub_key.type_() for v in vals.validators]
+    first = {t: types.index(t) for t in MIXED_SET}
+    out: dict = {"set": dict(MIXED_SET), "host_ms": _host_costs(keys, ref)}
+    t0 = time.perf_counter()
+    commits = [sign_commit(chain.chain_id, h, 0, chain.block_ids[h - 1],
+                           vals, by_addr) for h in (1, 2, 3, 4)]
+    out["sign_s"] = time.perf_counter() - t0
+
+    def tampered(commit, lanes):
+        sigs = list(commit.signatures)
+        for i in lanes:
+            s = sigs[i].signature
+            sigs[i] = CommitSig(sigs[i].block_id_flag,
+                                sigs[i].validator_address, sigs[i].timestamp,
+                                s[:40] + bytes([s[40] ^ 1]) + s[41:])
+        return dataclasses.replace(commit, signatures=sigs)
+
+    # the seam: one MixedBatchVerifier flush of the commit's lanes
+    bad_lanes = sorted(first.values())
+    for name, commit in (("clean", commits[0]),
+                         ("one_bad_per_curve",
+                          tampered(commits[0], bad_lanes))):
+        lanes = [(v.pub_key, commit.vote_sign_bytes(chain.chain_id, i),
+                  cs.signature) for i, (v, cs) in enumerate(
+                      zip(vals.validators, commit.signatures))]
+        mv = MixedBatchVerifier(device="cuda")
+        for lane in lanes:
+            mv.add(*lane)
+        count = FlushCount(torch, pkg, per_call)
+        t0 = time.perf_counter()
+        ok, oks = mv.verify()
+        wall = time.perf_counter() - t0
+        read = count.read(f"MixedBatchVerifier, {name}", want_flushes=1)
+        want = [_oracle(t, *lane, ref) for t, lane in zip(types, lanes)]
+        if oks != want or ok != all(want) or \
+                [i for i, v in enumerate(oks) if not v] != (
+                    bad_lanes if name != "clean" else []):
+            raise AssertionError(f"MixedBatchVerifier {name}: False lanes "
+                                 f"{[i for i, v in enumerate(oks) if not v]}")
+        out[f"seam_{name}"] = {"wall_s": wall, "lanes": len(lanes), **read}
+
+    # verify_commit, clean and with a tampered sr25519 lane
+    for name, commit, want in (
+            ("clean", commits[1], None),
+            ("tampered_sr25519", tampered(commits[1], [first["sr25519"]]),
+             first["sr25519"])):
+        reset_shared_cache()
+        count = FlushCount(torch, pkg, per_call)
+        t0 = time.perf_counter()
+        try:
+            validation.verify_commit(chain.chain_id, vals,
+                                     chain.block_ids[1], 2, commit,
+                                     device="cuda")
+            got = None
+        except validation.ErrWrongSignature as e:
+            got = e.idx
+        wall = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"verify_commit {name}: bad lane {got}, "
+                                 f"want {want}")
+        out[f"verify_commit_{name}"] = {
+            "wall_s": wall, **count.read(f"verify_commit, {name}",
+                                         want_flushes=1)}
+
+    # one tile: 40 of the chain's commits and the four mixed ones
+    entries = [TileEntry(height=h, block=chain.blocks[h - 1],
+                         block_id=chain.block_ids[h - 1],
+                         valset=chain.valsets[h - 1],
+                         commit=chain.seen_commits[h - 1])
+               for h in range(1, TILE + 1)]
+    mixed = [commits[0], tampered(commits[1], [first["secp256k1"]]),
+             commits[2], tampered(commits[3], [first["ed25519"]])]
+    entries += [TileEntry(height=h, block=chain.blocks[h - 1],
+                          block_id=chain.block_ids[h - 1], valset=vals,
+                          commit=c) for h, c in zip((1, 2, 3, 4), mixed)]
+    reset_shared_cache()
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    TiledCommitVerifier(chain.chain_id, batch_size=LANES,
+                        device="cuda").verify_tile(entries)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    verdicts = [e.commit_ok for e in entries]
+    if verdicts != [True] * TILE + [True, False, True, False]:
+        raise AssertionError(f"mixed tile verdicts {verdicts[TILE:]}, "
+                             f"{verdicts[:TILE].count(True)} of {TILE} "
+                             "chain commits")
+    # the chain's 8,000 lanes in one flush, each mixed commit's ed25519
+    # bucket in one more at marshal
+    out["tile"] = {"wall_s": wall, "commits": len(entries),
+                   "chain_lanes": TILE * VALIDATORS,
+                   **count.read("verify_tile, mixed", want_flushes=5)}
+
+    raw = st._valset_to_json(vals)
+    back = st._valset_from_json(raw)
+    state = st.State.from_genesis(st.GenesisDoc(chain_id="mixed",
+                                                validators=vals.validators))
+    sj = st._state_to_json(state)
+    if st._valset_to_json(back) != raw or [
+            v.pub_key.type_() for v in back.validators] != types or \
+            st._state_to_json(st._state_from_json(sj)) != sj:
+        raise AssertionError("the mixed set did not survive the state JSON")
+    out["state_json_bytes"] = len(sj)
+    out["sync"] = run_mixed_sync(torch, pkg, keys, seed, per_call)
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in (
+        "seam_clean", "seam_one_bad_per_curve", "verify_commit_clean",
+        "verify_commit_tampered_sr25519", "tile")) + sum(
+            out["sync"][p]["launches"][k] for p in ("clean", "tampered"))
+        for k in KERNELS}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # generate_chain's own default; with it, the signature tampered at
@@ -1241,7 +1811,8 @@ def main(argv=None) -> int:
     print(f"kernels match their plain versions at N={LANES} (decompression "
           f"at 2N={2 * LANES}, A and R in one call, and at N; N={RAGGED} "
           f"for decompression, window sums and additions, N={CHUNKS} for "
-          "window sums)", flush=True)
+          f"window sums; epilogue at M = {report['rlc_epilogue']['m_held']})",
+          flush=True)
     where = breakdown(torch, pkg, tile, dev)
 
     # phase 4: the paths, counts zeroed just before each, read just after
@@ -1293,6 +1864,33 @@ def main(argv=None) -> int:
           f"({server['two_clients_flushes']} flush(es)); 48-block sync at "
           f"depth 2 through it {server['sync']['wall_s']:.3f} s", flush=True)
 
+    per_call = {k: report[k]["launches_per_call"] for k in rlc}
+    light = run_light_client(torch, pkg, chain, per_call)
+    seq = light["sequential"]
+    print(f"light client: {seq['headers_per_s']:.1f} headers/s sequential "
+          f"({seq['ms_per_header']:.2f} ms a header, {seq['flushes']} "
+          f"flushes, {seq['canaries']} canary runs; card idle "
+          f"{seq['profiled']['idle_share']:.3f} of a profiled pass); "
+          f"forged witness: "
+          f"{light['forged_witness']['error']}; tampered commit: "
+          f"{light['tampered_commit']['error']}; launches "
+          f"{light['launches']}", flush=True)
+    mixed = run_mixed_set(torch, pkg, chain, args.seed, per_call)
+    print(f"mixed set {MIXED_SET}: seam flush "
+          f"{mixed['seam_clean']['wall_s']:.3f} s clean, "
+          f"{mixed['seam_one_bad_per_curve']['wall_s']:.3f} s with one bad "
+          f"lane per curve; verify_commit "
+          f"{mixed['verify_commit_clean']['wall_s']:.3f} s; tile of "
+          f"{mixed['tile']['commits']} commits "
+          f"{mixed['tile']['wall_s']:.3f} s; its chain of "
+          f"{MIXED_BLOCKS} blocks x {mixed['sync']['validators']} "
+          f"validators synced at depth 2 in "
+          f"{mixed['sync']['clean']['wall_s']:.3f} s "
+          f"({mixed['sync']['clean']['flush_count']['flushes']} flushes), "
+          f"tampered: banned {mixed['sync']['tampered']['banned']}; "
+          f"launches {mixed['launches']}; "
+          f"host ms a signature {mixed['host_ms']}", flush=True)
+
     cv.reset_launches()
     run_pt_add_ab(torch, pkg, add_args, report)
     ab = _read_path(cv.LAUNCHES, "pt_add_tiled A/B", ("pt_add_tiled",))
@@ -1316,6 +1914,8 @@ def main(argv=None) -> int:
                 d: f["launches"][name] for d, f in pipe["depths"].items()},
             "launches_device_server": server["launches"][name],
             "launches_server_sync": server["sync"]["launches"][name],
+            "launches_light_client": light["launches"][name],
+            "launches_mixed_set": mixed["launches"][name],
             **{k: r[k] for k in ("launches_per_call",
                                  "launches_per_call_profiled", "lanes", "m")
                if k in r}}
@@ -1343,9 +1943,11 @@ def main(argv=None) -> int:
         "kernels": {k: {"ms": report[k]["ms"],
                         "call_ms": report[k]["call_ms"],
                         "plain_ms": report[k]["plain_ms"]} for k in KERNELS},
+        "profile_tries": report["profile_tries"],
         "blocksync": {"clean": sync, "tampered": bad,
                       "tampered_r_decodes": r_decodes},
         "pipeline": pipe, "device_server": server,
+        "light_client": light, "mixed_set": mixed,
         "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,
         "breakdown": where, "lanes": LANES,

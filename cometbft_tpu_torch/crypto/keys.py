@@ -1,5 +1,6 @@
-"""Key interfaces and the ed25519 implementation (the ed25519 half of
-`cometbft_tpu/crypto/keys.py`).
+"""Key interfaces, the ed25519 implementation and the key factories by
+type (port of `cometbft_tpu/crypto/keys.py`; sr25519 and secp256k1 live
+in `sr25519.py` and `secp256k1.py`).
 
 Mirrors the reference plugin surface (crypto/crypto.go:22-54: PubKey,
 PrivKey, BatchVerifier), with the port's kernels behind
@@ -158,20 +159,40 @@ class Ed25519BatchVerifier:
 
 def privkey_from_type_bytes(key_type: str, raw: bytes) -> PrivKey:
     """Private-key factory by wire type string (the decode side of
-    FilePV state files). The port carries ed25519 only."""
+    FilePV state files, which persist (type, raw) so a key round-trips
+    with its type). sr25519 keys are 64 bytes (scalar seed and nonce
+    seed, `Sr25519PrivKey.bytes_`), secp256k1 keys 32; the JAX package
+    reads neither here, and the port's copy adds both."""
     if key_type == ED25519_KEY_TYPE:
         return Ed25519PrivKey(raw)
-    raise NotImplementedError(
-        f"{key_type!r} keys are not ported yet (ROADMAP.md Queue 1: "
-        "MixedBatchVerifier and the other key types)")
+    if key_type == "sr25519":
+        from .sr25519 import Sr25519PrivKey
+        if len(raw) != 64:
+            raise ValueError("sr25519 private key must be 64 bytes")
+        return Sr25519PrivKey(raw[:32], raw[32:])
+    if key_type == "secp256k1":
+        from .secp256k1 import Secp256k1PrivKey
+        return Secp256k1PrivKey(raw)
+    if key_type == "bls12_381":
+        raise NotImplementedError(
+            "bls12_381 keys are not ported yet (ROADMAP.md Queue 1: aggsig)")
+    raise ValueError(f"unsupported privval key type {key_type!r}")
 
 
 def pubkey_from_type_bytes(key_type: str, raw: bytes) -> PubKey:
     """Key factory by wire type string (reference
-    crypto/encoding/codec.go:119 PubKeyFromTypeAndBytes). The port
-    carries ed25519 only."""
+    crypto/encoding/codec.go:119 PubKeyFromTypeAndBytes). The type
+    decides, never the length: sr25519 and ed25519 keys are both 32
+    bytes."""
     if key_type == ED25519_KEY_TYPE:
         return Ed25519PubKey(raw)
-    raise NotImplementedError(
-        f"{key_type!r} keys are not ported yet (ROADMAP.md Queue 1: "
-        "MixedBatchVerifier and the other key types)")
+    if key_type == "secp256k1":
+        from .secp256k1 import Secp256k1PubKey
+        return Secp256k1PubKey(raw)
+    if key_type == "sr25519":
+        from .sr25519 import Sr25519PubKey
+        return Sr25519PubKey(raw)
+    if key_type == "bls12_381":
+        raise NotImplementedError(
+            "bls12_381 keys are not ported yet (ROADMAP.md Queue 1: aggsig)")
+    raise ValueError(f"unknown key type {key_type!r}")

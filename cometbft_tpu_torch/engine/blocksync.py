@@ -33,13 +33,16 @@ Port of `cometbft_tpu/engine/blocksync.py`. What differs:
   bucket when it is constructed on cuda (`prewarm_verify_kernels`), so
   no first build or first launch lands inside a dispatch under the
   watchdog's deadline, where a miss raises;
-- branches the port does not carry yet raise NotImplementedError naming
-  their ROADMAP.md item: mesh routing (COMETBFT_TPU_MESH_VERIFY exactly
-  "1" on a host with more than one card, the JAX package's
-  `mesh_available`; mesh and multi-GPU), and commits over a non-ed25519
-  validator set (MixedBatchVerifier and the other key types).
-  Aggregated (BLS) commits never get this far: `Commit.decode` raises
-  on their wire form (aggsig).
+- a commit over a non-ed25519 or mixed validator set is verified at
+  marshal through `validation.verify_commit` (its `MixedBatchVerifier`
+  sends the ed25519 lanes to `device`) and settles as a `DecidedSeal`,
+  where the JAX package settles an `aggsig.verify.AggSeal("ok"|"fail")`;
+- mesh routing (COMETBFT_TPU_MESH_VERIFY exactly "1" on a host with
+  more than one card, the JAX package's `mesh_available`) raises
+  NotImplementedError naming its ROADMAP.md item (mesh and multi-GPU).
+  Aggregated (BLS) commits, whose seals the JAX package leaves pending
+  for a batched pairing, never get this far: `Commit.decode` raises on
+  their wire form (aggsig).
 """
 
 from __future__ import annotations
@@ -83,12 +86,27 @@ class TileEntry:
     commit_ok: Optional[bool] = None
 
 
+class DecidedSeal:
+    """A commit whose verdict marshal already decided: one over a
+    non-ed25519 or mixed validator set, verified whole by
+    `validation.verify_commit`. It stands in the rows' place of the
+    marshal's result, and `settle_tile` copies `ok` into the entry."""
+
+    __slots__ = ("ok",)
+
+    def __init__(self, ok: bool):
+        self.ok = ok
+
+
 def marshal_commit(chain_id: str, e: TileEntry, pubs: List[bytes],
-                   msgs: List[bytes], sigs: List[bytes], cache=None):
+                   msgs: List[bytes], sigs: List[bytes], cache=None,
+                   device=None):
     """Marshal one commit's non-absent signatures into the lane lists;
     returns (entry, rows, needed) with rows=None on structural
     rejection. Each row is (lane, power, counted); lane=-1 marks a
-    verified-signature-cache hit that occupies no device lane.
+    verified-signature-cache hit that occupies no device lane. A commit
+    over a non-ed25519 or mixed set adds no lanes: rows is then a
+    `DecidedSeal`, and `device` is where its ed25519 lanes verify.
 
     Standalone (not a verifier method) because this IS the pipeline's
     host marshal stage: the scheduler runs it for tile N+1 while the
@@ -101,12 +119,18 @@ def marshal_commit(chain_id: str, e: TileEntry, pubs: List[bytes],
         return e, None, 0
     needed = vals.total_voting_power() * 2 // 3
     if any(v.pub_key.type_() != "ed25519" for v in vals.validators):
-        # the JAX package verifies such a commit host-side and settles
-        # it as an aggsig AggSeal
-        raise NotImplementedError(
-            "commits over a non-ed25519 validator set are not ported yet "
-            "(ROADMAP.md Queue 1: MixedBatchVerifier and the other key "
-            "types)")
+        # plain per-lane commit on a non-ed25519 (or mixed) valset:
+        # the flat lanes below feed the ed25519 kernels, which reject
+        # every foreign-curve signature. Verify it here with full
+        # semantics through the generic dispatch seam instead (its
+        # MixedBatchVerifier batches the ed25519 lanes on `device`);
+        # the verdict is decided before settle time
+        try:
+            validation.verify_commit(chain_id, vals, e.block_id,
+                                     e.height, commit, device=device)
+            return e, DecidedSeal(True), needed
+        except validation.CommitVerificationError:
+            return e, DecidedSeal(False), needed
     rows = []
     for idx, cs in enumerate(commit.signatures):
         if cs.absent_():
@@ -168,8 +192,12 @@ def mesh_available() -> bool:
 def settle_tile(metas, out, pubs, msgs, sigs, cache=None) -> None:
     """Map per-lane verdicts back to per-commit results with FULL
     verify_commit semantics (every included signature valid AND for-block
-    power > 2/3); newly verified-true lanes feed the cache."""
+    power > 2/3); newly verified-true lanes feed the cache. A commit
+    marshaled as a `DecidedSeal` takes its verdict."""
     for e, rows, needed in metas:
+        if isinstance(rows, DecidedSeal):
+            e.commit_ok = rows.ok
+            continue
         if rows is None:  # structural failure already decided
             e.commit_ok = False
             continue
@@ -204,7 +232,7 @@ class TiledCommitVerifier:
         msgs: List[bytes] = []
         sigs: List[bytes] = []
         metas = [marshal_commit(self.chain_id, e, pubs, msgs, sigs,
-                                self.cache) for e in entries]
+                                self.cache, self.device) for e in entries]
         out = verify_lanes(pubs, msgs, sigs, self.batch_size, self.device)
         settle_tile(metas, out, pubs, msgs, sigs, self.cache)
 

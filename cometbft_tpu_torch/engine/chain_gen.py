@@ -7,10 +7,12 @@ Port of `cometbft_tpu/engine/chain_gen.py`: RFC 8032 signing is
 deterministic and every hash and sign-bytes encoder is a copy, so
 `generate_chain(seed)` gives the JAX package's chain byte for byte. The
 executor that applies the generated blocks verifies each last commit on
-`device=` (default cuda). BLS keys and aggregated seals (aggsig), and
-the light-client and seal sources over a chain (`ChainLightProvider`,
-`ChainSealSource`), are not ported yet (ROADMAP.md Queue 1: aggsig;
-light client; sealsync).
+`device=` (default cuda). `ChainLightProvider` serves the chain to the
+light client. BLS keys and aggregated seals, and the seal source over a
+chain (`ChainSealSource`), are not ported yet (ROADMAP.md Queue 1:
+aggsig; sealsync). Validators sign with ed25519 keys only, as in the
+JAX package, which adds BLS: a mixed-curve set is built by hand and its
+commits signed with `sign_commit`, which takes any key type.
 """
 
 from __future__ import annotations
@@ -52,11 +54,14 @@ def make_genesis(n_validators: int, chain_id: str = "tpu-chain",
                  key_type: str = "ed25519"
                  ) -> Tuple[GenesisDoc, Dict[bytes, Ed25519PrivKey]]:
     rng = random.Random(seed)
-    if key_type != "ed25519":
+    if key_type == "bls12_381":
         raise NotImplementedError(
-            f"{key_type!r} validator keys are not ported yet (ROADMAP.md "
-            "Queue 1: aggsig; MixedBatchVerifier and the other key "
-            "types)")
+            "BLS validator keys are not ported yet (ROADMAP.md Queue 1: "
+            "aggsig)")
+    if key_type != "ed25519":
+        # the JAX package signs with ed25519 keys for any type but BLS
+        raise ValueError(f"make_genesis makes ed25519 or BLS keys, not "
+                         f"{key_type!r}")
     keys = [Ed25519PrivKey(bytes(rng.randrange(256) for _ in range(32)))
             for _ in range(n_validators)]
     vals = [Validator(k.pub_key(), power[i] if power else 10)
@@ -142,6 +147,30 @@ def generate_chain(n_blocks: int, n_validators: int = 4,
     return GeneratedChain(chain_id=chain_id, genesis=gen, blocks=blocks,
                           block_ids=block_ids, seen_commits=commits,
                           keys=keys, valsets=valsets)
+
+
+class ChainLightProvider:
+    """Light-client provider over a GeneratedChain (the mock-provider
+    analog, reference light/provider/mock) — shared by the light tests
+    and the chip smoke's light-client phase."""
+
+    def __init__(self, chain: GeneratedChain):
+        self.chain = chain
+
+    def chain_id(self) -> str:
+        return self.chain.chain_id
+
+    def light_block(self, height: int):
+        from ..light.provider import ErrLightBlockNotFound
+        from ..light.types import LightBlock, SignedHeader
+        if height == 0:
+            height = self.chain.max_height()
+        if not (1 <= height <= self.chain.max_height()):
+            raise ErrLightBlockNotFound(str(height))
+        blk = self.chain.blocks[height - 1]
+        return LightBlock(
+            SignedHeader(blk.header, self.chain.seen_commits[height - 1]),
+            self.chain.valsets[height - 1].copy())
 
 
 class LocalChainSource:

@@ -464,7 +464,8 @@ class PipelinedBlocksync:
             msgs: List[bytes] = []
             sigs: List[bytes] = []
             metas = [marshal_commit(self.r.verifier.chain_id, e, pubs,
-                                    msgs, sigs, self.r.cache)
+                                    msgs, sigs, self.r.cache,
+                                    self.r.verifier.device)
                      for e in entries]
         finally:
             marshal_span.end()

@@ -173,10 +173,31 @@ class LightClientAttackEvidence:
 
     @classmethod
     def decode_body(cls, body: bytes) -> "LightClientAttackEvidence":
-        # the conflicting block decodes into light/types.LightBlock
-        raise NotImplementedError(
-            "light-client attack evidence needs the light client, which "
-            "is not ported yet (ROADMAP.md Queue 1: light client)")
+        from ..light.types import LightBlock, SignedHeader
+        from ..state.state import _valset_from_json
+        from .block import Commit, Header
+        f = proto.parse_fields(body)
+        bf = proto.parse_fields(proto.field_bytes(f, 1, b""))
+        lb = LightBlock(
+            SignedHeader(Header.decode(proto.field_bytes(bf, 1, b"")),
+                         Commit.decode(proto.field_bytes(bf, 2, b""))),
+            _valset_from_json(proto.field_bytes(bf, 3, b"")))
+        ts = proto.field_bytes(f, 4, None)
+        ev = cls(conflicting_block=lb,
+                 common_height=proto.to_int64(proto.field_int(f, 2, 0)),
+                 total_voting_power=proto.to_int64(
+                     proto.field_int(f, 3, 0)),
+                 timestamp=(Timestamp.decode(ts) if ts is not None
+                            else Timestamp()))
+        # byzantine entries resolved against the conflicting block's set
+        # when present, else kept as bare address refs — the set is
+        # ATTACKER-CONTROLLED and may omit them; dropping entries would
+        # change the hash across a wire round-trip and break dedup
+        for addr in proto.field_all_bytes(f, 5):
+            _i, val = lb.validator_set.get_by_address(addr)
+            ev.byzantine_validators.append(
+                val if val is not None else ByzantineRef(addr))
+        return ev
 
     def hash(self) -> bytes:
         return hashlib.sha256(self.encode()).digest()

@@ -99,8 +99,9 @@ def _verify_commit_core(chain_id: str, vals: ValidatorSet, commit: Commit,
     """Shared body of the batch and single paths
     (reference types/validation.go:218-322 and :331-405; one body here
     because attribution is free with per-lane verdicts). `device` is
-    where a batch of `BATCH_VERIFY_THRESHOLD` or more signatures runs
-    (default cuda, `device.resolve_device`).
+    where a batch of `BATCH_VERIFY_THRESHOLD` or more ed25519 signatures
+    runs (default cuda, `device.resolve_device`), alone or as the
+    ed25519 bucket of a mixed-curve set's `MixedBatchVerifier`.
 
     An aggregated (BLS) commit never reaches this function in the port:
     `Commit.decode` raises on its wire form."""
@@ -108,12 +109,15 @@ def _verify_commit_core(chain_id: str, vals: ValidatorSet, commit: Commit,
     bv = None
     if use_batch:
         if len({v.pub_key.type_() for v in vals.validators}) > 1:
-            raise NotImplementedError(
-                "heterogeneous validator sets need MixedBatchVerifier, "
-                "which is not ported yet (ROADMAP.md Queue 1: "
-                "MixedBatchVerifier and the other key types)")
-        bv, ok = crypto_batch.create_batch_verifier(
-            vals.get_proposer().pub_key, device=device)
+            # heterogeneous valset: a proposer-keyed single-curve
+            # verifier would TypeError on the first foreign-curve
+            # lane; the mixed dispatcher buckets per curve (batched
+            # where supported, per-sig singles otherwise) with exact
+            # per-lane attribution, its ed25519 bucket on `device`
+            bv, ok = crypto_batch.MixedBatchVerifier(device=device), True
+        else:
+            bv, ok = crypto_batch.create_batch_verifier(
+                vals.get_proposer().pub_key, device=device)
         use_batch = ok
 
     # verified-signature cache (pipeline/cache): commits re-checked by

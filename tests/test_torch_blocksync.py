@@ -21,6 +21,15 @@ the host modules under it) held against the JAX package's, on the CPU.
   package's verdicts, unless it is exactly "1" on a host with more than
   one card (the JAX package's `mesh_available`); only then does the
   unported mesh branch raise.
+- Mixed-curve validator sets (70 ed25519, 3 sr25519 and 3 secp256k1
+  keys; commits signed over the main chain's block ids): `verify_commit`
+  passes or raises the same error at the same index as the JAX package's,
+  clean and with tampered lanes, through `MixedBatchVerifier` (its
+  ed25519 bucket on the torch RLC path here, per signature on the JAX
+  side); `verify_tile` on a tile mixing the main chain's commits with
+  mixed-set commits gives the JAX package's per-commit verdicts (the
+  mixed commits decided at marshal, the JAX package's AggSeal "ok" and
+  "fail", the port's `DecidedSeal`).
 - Unported branches raise NotImplementedError; device="cuda" raises
   without a card.
 """
@@ -29,6 +38,9 @@ import dataclasses
 
 import pytest
 import torch
+
+from cometbft_tpu.pipeline.cache import reset_shared_cache as jreset_cache
+from cometbft_tpu.types import validation as jval
 
 from cometbft_tpu.abci.kvstore import KVStoreApplication as JApp
 from cometbft_tpu.crypto.keys import Ed25519PrivKey as JPriv
@@ -52,7 +64,12 @@ from cometbft_tpu_torch.state.execution import BlockExecutor as PExec
 from cometbft_tpu_torch.state.execution import BlockValidationError as PBVE
 from cometbft_tpu_torch.state.state import State as PState
 from cometbft_tpu_torch.store.blockstore import BlockStore as PStore
+from cometbft_tpu_torch.pipeline.cache import \
+    reset_shared_cache as preset_cache
 from cometbft_tpu_torch.types.block import CommitSig as PCommitSig
+from cometbft_tpu_torch.types import validation as pval
+
+import _torch_mixed as tm
 
 TILE = 9          # 9 heights x 8 validators: one corrupt commit leaves 64
 BATCH = 64        # the port's RLC bucket on the CPU
@@ -235,6 +252,97 @@ def test_verify_tile_matches_jax(chains):
     assert ped.STATS["rlc_pass"] == stats0["rlc_pass"] + 1
 
 
+@pytest.fixture(scope="module")
+def mixed(chains):
+    """Per side, a 76-key mixed set and its commits for heights 1..3 of
+    the main chain, signed over that chain's block ids: (set, commits)."""
+    specs = tm.key_specs(21, n_ed=70, n_sr=3, n_secp=3)
+    out = {}
+    for side, chain in zip(("jax", "port"), chains["main"]):
+        vals = tm.valset(side, specs)
+        keys = {k.pub_key().address(): k
+                for k in (tm.make_key(side, t, r) for t, r in specs)}
+        cg = jcg if side == "jax" else pcg
+        out[side] = (vals, [cg.sign_commit(chain.chain_id, h, 0,
+                                           chain.block_ids[h - 1], vals,
+                                           keys) for h in (1, 2, 3)])
+    return out
+
+
+def _bad_lanes(vals, types):
+    """The index of the first validator of each of `types` in `vals`."""
+    first = {}
+    for i, v in enumerate(vals.validators):
+        first.setdefault(v.pub_key.type_(), i)
+    return sorted(first[t] for t in types)
+
+
+@pytest.mark.parametrize("bad_types", [
+    (), ("secp256k1",), ("ed25519", "sr25519", "secp256k1")])
+def test_mixed_verify_commit_matches_jax(chains, mixed, bad_types):
+    outcomes = []
+    stats0 = dict(ped.STATS)
+    for side, chain in zip(("jax", "port"), chains["main"]):
+        jreset_cache()
+        preset_cache()
+        vals, commits = mixed[side]
+        sig_cls = JCommitSig if side == "jax" else PCommitSig
+        commit = tm.tamper(sig_cls, commits[1], _bad_lanes(vals, bad_types))
+        validation = jval if side == "jax" else pval
+        kw = {} if side == "jax" else {"device": "cpu"}
+        try:
+            validation.verify_commit(chain.chain_id, vals,
+                                     chain.block_ids[1], 2, commit, **kw)
+            outcomes.append(None)
+        except validation.CommitVerificationError as e:
+            outcomes.append((type(e).__name__, getattr(e, "idx", None)))
+    assert outcomes[0] == outcomes[1]
+    bad = _bad_lanes(mixed["port"][0], bad_types)
+    assert outcomes[1] == (("ErrWrongSignature", bad[0]) if bad else None)
+    # the 70 ed25519 lanes ran the torch RLC path, attributed per lane
+    # when one of them was tampered
+    moved = {k: ped.STATS[k] - stats0[k] for k in ("rlc_pass", "per_lane")}
+    assert moved == ({"rlc_pass": 0, "per_lane": 1}
+                     if "ed25519" in bad_types
+                     else {"rlc_pass": 1, "per_lane": 0})
+
+
+def test_mixed_verify_tile_matches_jax(chains, mixed):
+    """The main chain's tile of `_mixed_tile` plus three mixed-set
+    commits: clean, one tampered secp256k1 lane, and a wrong height."""
+    verdicts = []
+    for side, chain in zip(("jax", "port"), chains["main"]):
+        jreset_cache()
+        preset_cache()
+        bs, sig_cls = (jbs, JCommitSig) if side == "jax" else (pbs,
+                                                               PCommitSig)
+        vals, commits = mixed[side]
+        extra = [tm.tamper(sig_cls, commits[1],
+                           _bad_lanes(vals, ("secp256k1",))),
+                 commits[0], dataclasses.replace(commits[2], height=2)]
+        entries = _mixed_tile(chain, bs, sig_cls) + [
+            bs.TileEntry(height=h, block=chain.blocks[h - 1],
+                         block_id=chain.block_ids[h - 1], valset=vals,
+                         commit=c)
+            for h, c in zip((2, 1, 3), extra)]
+        stats0 = dict(ped.STATS)
+        if side == "jax":
+            bs.TiledCommitVerifier(chain.chain_id,
+                                   batch_size=0).verify_tile(entries)
+        else:
+            bs.TiledCommitVerifier(chain.chain_id, batch_size=BATCH,
+                                   device="cpu").verify_tile(entries)
+        verdicts.append([e.commit_ok for e in entries])
+    assert verdicts[0] == verdicts[1] == [
+        True, False, True, False, True, False, True, False, True, True,
+        False, True, False]
+    # the main chain's lanes (one chunk attributed, one passed) and the
+    # clean mixed commit's ed25519 bucket; the tampered one fails on its
+    # secp256k1 lane and its bucket passes
+    assert ped.STATS["per_lane"] == stats0["per_lane"] + 1
+    assert ped.STATS["rlc_pass"] == stats0["rlc_pass"] + 3
+
+
 def test_unported_branches_raise(chains, monkeypatch):
     _, pchain = chains["main"]
     # mesh routing: only where the JAX package would take it, the
@@ -247,8 +355,12 @@ def test_unported_branches_raise(chains, monkeypatch):
     with pytest.raises(NotImplementedError):
         pcg.generate_chain(n_blocks=2, n_validators=2, aggregate=True,
                            device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="aggsig"):
         pcg.make_genesis(2, key_type="bls12_381")
+    # the generator signs with ed25519 keys only (the JAX package adds
+    # BLS, and makes ed25519 keys for any other type it is given)
+    with pytest.raises(ValueError):
+        pcg.make_genesis(2, key_type="sr25519")
     agg = pchain.seen_commits[0].encode() + bytes([0x32, 1, 0])  # field 6
     with pytest.raises(NotImplementedError):
         type(pchain.seen_commits[0]).decode(agg)

@@ -26,6 +26,11 @@ on the CPU.
 - The watchdog's deadlines and counters, and the supervisor's state
   sequence under a fixed `libs/timesource` clock, are compared step by
   step with the JAX package's.
+- A chain over a mixed-curve set (65 ed25519 and 2 secp256k1 keys, built
+  by hand: neither chain generator makes one) syncs like the JAX
+  package's at depth 1 and 2, clean and with a tampered signature: each
+  commit is verified whole at marshal (`validation.verify_commit`, its
+  ed25519 bucket on the torch RLC path here) and settles as decided.
 """
 
 import dataclasses
@@ -43,12 +48,14 @@ from cometbft_tpu.engine import chain_gen as jcg
 from cometbft_tpu.libs import metrics as jmetrics
 from cometbft_tpu.libs import metrics_gen as jmetrics_gen
 from cometbft_tpu.libs import timesource as jtime
+from cometbft_tpu.pipeline import cache as jcache
 from cometbft_tpu.pipeline import scheduler as jsched
 from cometbft_tpu.pipeline import watchdog as jwd
 from cometbft_tpu.state.execution import BlockExecutor as JExec
 from cometbft_tpu.state.execution import BlockValidationError as JBVE
 from cometbft_tpu.state.state import State as JState
 from cometbft_tpu.store.blockstore import BlockStore as JStore
+from cometbft_tpu.types.block import CommitSig as JCommitSig
 
 from cometbft_tpu_torch.abci.kvstore import KVStoreApplication as PApp
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey as PPriv
@@ -60,12 +67,16 @@ from cometbft_tpu_torch.libs import metrics as pmetrics
 from cometbft_tpu_torch.libs import metrics_gen as pmetrics_gen
 from cometbft_tpu_torch.libs import timesource as ptime
 from cometbft_tpu_torch.ops import ed25519 as ped
+from cometbft_tpu_torch.pipeline import cache as pcache
 from cometbft_tpu_torch.pipeline import scheduler as psched
 from cometbft_tpu_torch.pipeline import watchdog as pwd
 from cometbft_tpu_torch.state.execution import BlockExecutor as PExec
 from cometbft_tpu_torch.state.execution import BlockValidationError as PBVE
 from cometbft_tpu_torch.state.state import State as PState
 from cometbft_tpu_torch.store.blockstore import BlockStore as PStore
+from cometbft_tpu_torch.types.block import CommitSig as PCommitSig
+
+import _torch_mixed as tm
 
 TILE = 9          # 9 heights x 8 validators: one corrupt commit leaves 64
 BATCH = 64        # the port's RLC bucket on the CPU
@@ -194,6 +205,69 @@ def test_pipeline_matches_jax(chains, name, corrupt, batch, tile):
         assert pr.stats.respeculations >= 1
     elif batch and not corrupt:
         assert ped.STATS["rlc_pass"] > stats0["rlc_pass"]
+
+
+@pytest.fixture(scope="module")
+def mixed_chains():
+    """(jax, port) chains of 3 blocks over a 67-key set of 65 ed25519 and
+    2 secp256k1 keys."""
+    specs = tm.key_specs(31, n_ed=65, n_sr=0, n_secp=2)
+    return tuple(tm.mixed_chain(side, 3, specs, device="cpu")[0]
+                 for side in ("jax", "port"))
+
+
+def _secp_tampering_source(side):
+    """A LocalChainSource whose corrupt heights carry a last commit with
+    its first secp256k1 signature tampered (a bit of s flipped), until a
+    ban. The JAX side must not retry a tampered ed25519 lane: the retry
+    finds every other ed25519 lane in the verified-signature cache, and
+    a bucket of one lane would jit the JAX package's RLC kernel on the
+    CPU."""
+    base = SIDES[side]["cg"].LocalChainSource
+    sig_cls = JCommitSig if side == "jax" else PCommitSig
+
+    class SecpTamper(base):
+        def __init__(self, chain, corrupt=None):
+            super().__init__(chain)
+            self.heights = set(corrupt or ())
+
+        def fetch(self, height):
+            got = super().fetch(height)
+            if got is None or height not in self.heights:
+                return got
+            block, bid = got
+            vals = self.chain.valsets[height - 2]
+            idx = next(i for i, v in enumerate(vals.validators)
+                       if v.pub_key.type_() == "secp256k1")
+            lc = tm.tamper(sig_cls, block.last_commit, [idx])
+            return dataclasses.replace(block, last_commit=lc), bid
+
+        def ban(self, height):
+            super().ban(height)
+            self.heights.clear()
+
+    return SecpTamper
+
+
+@pytest.mark.parametrize("depth,corrupt", [(1, None), (2, None),
+                                           (2, {3: "secp"})])
+def test_mixed_chain_sync_matches_jax(mixed_chains, depth, corrupt):
+    jchain, pchain = mixed_chains
+    # the generators' commit checks filled the process-wide caches
+    jcache.reset_shared_cache()
+    pcache.reset_shared_cache()
+    stats0 = dict(ped.STATS)
+    j = _sync("jax", jchain, depth, corrupt, _secp_tampering_source("jax"))
+    p = _sync("port", pchain, depth, corrupt,
+              _secp_tampering_source("port"), batch=BATCH)
+    _assert_same(j, p)
+    pst, pr, psrc, _ = p
+    assert pst.last_block_height == pchain.max_height()
+    assert psrc.banned == ([2] if corrupt else [])
+    # every commit verified at marshal: no lane reached the tile's flush,
+    # each commit's ed25519 bucket ran the torch RLC path
+    assert pr.stats.tiles_flushed >= 1
+    assert ped.STATS["rlc_pass"] - stats0["rlc_pass"] >= 3
 
 
 def test_pipeline_exhausts_retries_like_jax(chains):
