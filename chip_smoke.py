@@ -7,7 +7,7 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
     python3 chip_smoke.py [--seed N]
 
 Phases; any failure exits non-zero:
-1. Build the four CUDA kernels from cometbft_tpu_torch/csrc/ (one nvcc
+1. Build the six CUDA kernels from cometbft_tpu_torch/csrc/ (one nvcc
    per source, all started together), and beside them the one-thread
    yardstick kernels of ONE_THREAD_CU (the parent's decompression and
    addition, from the same fe25519.cuh); print the build seconds, the
@@ -47,7 +47,14 @@ Phases; any failure exits non-zero:
    Then time where a flush goes: the host marshal, SHA-512, the device
    part of the RLC verify, and (under torch.profiler) the kernel
    launches and device-busy time of the RLC verify and of the per-lane
-   verify.
+   verify. Then the two BLS kernels (ops/bls12.py) against their plain
+   versions at buckets 4, 16 and 64, exactly (final Fq12 limbs and
+   verdicts): `bls_miller_finalexp` on line coefficients of the canary
+   items, clean 2-pair commit items, tampered aggregates, a 1-pair item
+   and a pad lane, `bls_hard_pow` on the same items' Miller products
+   after the easy part, and once at a 40-bit exponent; the verdicts
+   against the host oracle; each kernel timed per bucket (torch.profiler
+   device time, CUDA events around a call, the plain call).
 4. The paths, each with the launch counters zeroed just before it and
    read just after:
    - the BatchVerifier seam (`create_batch_verifier` ->
@@ -112,6 +119,21 @@ Phases; any failure exits non-zero:
      blocks: every commit verified at marshal, one flush per commit with
      an ed25519 proposer; and once with a tampered signature, which
      must ban height 3 or 4;
+   - aggsig (BLS aggregate commits), each pass with the signature cache
+     reset: genesis PoP admission of a 150-validator BLS set on the host
+     RLC route from a cold process and on the kernel route (the fused
+     kernel prewarmed at bucket 64: 3 launches), clean and with one bad
+     PoP (rejected exactly, and alike on the host route over 16 keys);
+     `verify_commit` of the set's 150-signer aggregated commit (one
+     launch at bucket 4; a flipped aggregate byte is rejected) and of a
+     multi-group aggregate over 16 validators (17 pairs: the host Miller
+     product, one `bls_hard_pow` launch; a tampered copy fails); a
+     63-block chain of 16 validators synced through
+     `BlocksyncReactor(tile_size=62)` at depth 1 and 2, twice each, and
+     tampered at height 31 (a ban, then it completes): one
+     `bls_miller_finalexp` launch per checker call with pending work
+     (the first tile: 62 seals + 2 canaries, bucket 64), each launch
+     timed with CUDA events (the card's idle share);
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
@@ -120,7 +142,9 @@ Phases; any failure exits non-zero:
    the one-thread parent's device time from the same rounds;
    `rlc_window_sums` counts two launches a call, and the launches of the
    pipelined syncs, of the device server's paths, of the light client
-   and of the mixed set), a timing line with the catch-up sigs/s and
+   and of the mixed set; the BLS kernels' rows with the launches of
+   their own paths, the aggregated catch-up and the multi-group
+   `verify_commit`), a timing line with the catch-up sigs/s and
    where the sync's time goes, the pipelined depths' medians and
    spreads, the server's stats, the light client's headers/s and the
    mixed set's pass times, the card's name and power limit, and last
@@ -193,6 +217,44 @@ KERNELS = {
     "pt_add_tiled": ("pt_add.cu", 277),
 }
 ROUNDS = 20           # timed calls of each kernel under torch.profiler
+# The BLS kernels (ops/bls12.py): each source and the line of the jitted
+# JAX program it replaces in cometbft_tpu/ops/bls12.py (XLA, not Pallas)
+BLS_KERNELS = {
+    "bls_miller_finalexp": ("bls_miller_finalexp.cu", 521),
+    "bls_hard_pow": ("bls_hard_pow.cu", 230),
+}
+BLS_BUCKETS = (4, 16, 64)  # the JAX package's batch shapes
+BLS_ROUNDS = 5        # timed calls of each BLS kernel a bucket
+BLS_STEPS = 63        # Miller steps (bits of |x| after the first)
+# The least int32 multiply-adds of the BLS field operations, as above:
+# an Fq product is 12 x 12 word products and the reduction's 12 x 12, lo
+# and hi; an Fq squaring only the 78 distinct word products, then the
+# reduction. An Fq2 product is 3 Fq products (Karatsuba), an Fq2 squaring
+# 2 ((a + b)(a - b), 2ab). An Fq12 product is the kernel's 36 Fq2
+# products, a sparse line product 18; an Fq12 squaring only the distinct
+# ones (6 Fq2 squarings, 15 Fq2 products), and a squaring in the
+# cyclotomic subgroup, where the hard chain runs after the easy part, 9
+# Fq2 squarings (Granger-Scott).
+MADS_FQ = 2 * 2 * 12 * 12
+MADS_FQ_SQ = 2 * (78 + 12 * 12)
+MADS_FQ2 = 3 * MADS_FQ
+MADS_FQ2_SQ = 2 * MADS_FQ
+MADS_F12 = 36 * MADS_FQ2
+MADS_F12_SQ = 6 * MADS_FQ2_SQ + 15 * MADS_FQ2
+MADS_F12_CYC = 9 * MADS_FQ2_SQ
+MADS_SPARSE = 18 * MADS_FQ2
+# The aggsig paths (PERF.md §4): genesis admission and verify_commit at
+# BASELINE.json's 150-validator VerifyCommit set; a multi-group commit
+# of 16 validators (17 pairs); catch-up over 63 blocks of 16 validators
+# in tiles of 62 (62 seals + 2 canaries fill bucket 64 in one settle;
+# host signing, not the card, sets the 16)
+AGG_SET = 150
+AGG_BAD = 7           # the key whose PoP is replaced in the bad case
+AGG_BAD_HOST = 16     # keys of the host route's bad-PoP case
+AGG_GROUPS = 16
+AGG_BLOCKS = 63
+AGG_VALIDATORS = 16
+AGG_TILE = 62
 
 # The one-thread designs that csrc/pt_decompress.cu and csrc/pt_add.cu
 # replaced (one lane per thread, 128-thread blocks, fe25519.cuh's
@@ -712,9 +774,10 @@ def _kernel_name(e) -> str:
 def _source_fns(name: str) -> set:
     """The `__global__` functions of kernel `name`'s source."""
     csrc = Path(__file__).resolve().parent / "cometbft_tpu_torch" / "csrc"
+    src = (KERNELS.get(name) or BLS_KERNELS[name])[0]
     return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
                           r"\([^)]*\)\s*)?(\w+)",
-                          (csrc / KERNELS[name][0]).read_text()))
+                          (csrc / src).read_text()))
 
 
 def _profile_jobs(torch, cv, yard, jobs, fns_of):
@@ -1565,7 +1628,7 @@ def run_mixed_sync(torch, pkg, keys, seed: int, per_call: dict) -> dict:
     """The mixed set's chain (`make_mixed_chain`) synced from genesis
     through `BlocksyncReactor(pipeline_depth=2)` on the card, with the
     watchdog and the supervisor, in tiles of MIXED_TILE blocks: every
-    commit is verified at marshal on the main thread (a `DecidedSeal`;
+    commit is verified at marshal on the main thread (an `AggSeal`;
     its ed25519 bucket one flush, where the height's proposer holds an
     ed25519 key) while the worker settles the tile before. Clean: it
     must reach the generator's state with no ban and make exactly one
@@ -1747,6 +1810,587 @@ def run_mixed_set(torch, pkg, chain, seed: int, per_call: dict) -> dict:
     return out
 
 
+# --- the BLS aggregate-commit kernels and paths (aggsig) ----------------------
+
+def bls_items(bls):
+    """The held lanes, distinct: the known-one canary item, a clean 2-pair
+    commit item (a key's signature e(-g1, S) e(pk, H(m))), a tampered
+    aggregate (the signature of another message), the known-not-one
+    canary item, a 1-pair item, then three more clean and one more
+    tampered item over other keys and messages. With the host oracle's
+    verdicts (`final_exponentiation(miller_product(.)) == 1`)."""
+    q = bls.G2_GEN
+    items = [[(bls.G1_NEG, q), (bls.G1_GEN, q)]]
+    clean, tampered = [], []
+    for i in range(4):
+        key = bls.Bls12381PrivKey.generate(seed=b"chip-smoke-bls-%d" % i)
+        msg = b"chip smoke precommit %d, longer than thirty-two bytes" % i
+        h = bls.hash_to_g2_cached(bls._fixed_msg(msg))
+        pk = key.pub_key().point
+        clean.append([(bls.G1_NEG, bls.g2_decompress(key.sign(msg))),
+                      (pk, h)])
+        tampered.append([(bls.G1_NEG, bls.g2_decompress(
+            key.sign(msg + b"!"))), (pk, h)])
+    items += [clean[0], tampered[0], [(bls.G1_GEN, q), (bls.G1_GEN, q)],
+              [(bls.G1_GEN, q)], clean[1], tampered[1], clean[2], clean[3]]
+    want = [bls.final_exponentiation(bls.miller_product(it)) == bls.F12_ONE
+            for it in items]
+    if want != [True, True, False, False, False, True, False, True, True]:
+        raise AssertionError(f"host oracle verdicts {want}")
+    return items, want
+
+
+def _bls_lanes(n_items: int, bucket: int) -> list:
+    """Item index per lane of a bucket: the items in turn, and the last
+    lane a pad lane (index n_items)."""
+    return [i % n_items for i in range(bucket - 1)] + [n_items]
+
+
+def _bls_mads(name: str, bits, lines: np.ndarray) -> int:
+    """The least int32 multiply-adds of one call of a BLS kernel on a
+    bucket, each operation at its least cost (MADS_F12_SQ and the rest).
+    The hard chain squares at every bit after the first and multiplies
+    at every later one-bit: general squarings in `bls_hard_pow`, whose
+    input is any Fq12 element, cyclotomic ones after the easy part in
+    `bls_miller_finalexp`. There, per lane, the Miller scan counts only
+    the lines that are not the identity (a zero-bit addition slot, an
+    absent pair or a pad lane carries the identity), and the first step's
+    squaring and its first line product act on f = 1 and cost nothing;
+    the easy part is the Fq12 inversion (`_bls_inv12_mads`), two Fq12
+    products and the p^2-Frobenius's 8 Fq products (gamma^0 = 1 and
+    gamma^3 = -1). `lines` is the bucket's packed lines,
+    (63, 2, 2, 3, 2, 24, B)."""
+    from cometbft_tpu_torch.ops import bls12 as pb
+    n_sq, n_mul = len(bits) - 1, sum(bits) - 1
+    b = lines.shape[-1]
+    if name == "bls_hard_pow":
+        return b * (n_sq * MADS_F12_SQ + n_mul * MADS_F12)
+    slots = lines.reshape(-1, 3 * 2 * pb.NLIMBS, b)
+    ident = pb._identity_line().reshape(-1, 1)
+    real = (slots != ident[None]).any(axis=1).sum(axis=0)   # (B,)
+    miller = sum((BLS_STEPS - 1) * MADS_F12_SQ + (int(r) - 1) * MADS_SPARSE
+                 for r in real if r)
+    easy = _bls_inv12_mads(pb.P_INT) + 2 * MADS_F12 + 8 * MADS_FQ
+    chain = n_sq * MADS_F12_CYC + n_mul * MADS_F12
+    return miller + b * (easy + chain)
+
+
+def _bls_inv12_mads(p: int) -> int:
+    """The least multiply-adds of f12_inv_serial (fq381.cuh): the two Fq6
+    squarings A^2, B^2 (3 Fq2 squarings and 3 Fq2 products each), the Fq6
+    inverse (3 Fq2 squarings, 9 Fq2 products and the Fq2 inverse's 2 Fq
+    squarings, 2 Fq products and Fermat chain to p - 2) and two Fq6
+    products of 9 Fq2 products."""
+    fermat = ((p - 2).bit_length() - 1) * MADS_FQ_SQ \
+        + (bin(p - 2).count("1") - 1) * MADS_FQ
+    return (2 * (3 * MADS_FQ2_SQ + 3 * MADS_FQ2)
+            + 3 * MADS_FQ2_SQ + 9 * MADS_FQ2
+            + 2 * MADS_FQ_SQ + 2 * MADS_FQ + fermat
+            + 2 * 9 * MADS_FQ2)
+
+
+def _bls_bytes(kernel: str, bucket: int, nbits: int) -> int:
+    lane_in = (BLS_STEPS * 2 * 2 * 3 * 2 * 24 * 4
+               if kernel == "bls_miller_finalexp" else 6 * 2 * 24 * 4)
+    return bucket * (lane_in + 6 * 2 * 24 * 4 + 1) + 4 * nbits
+
+
+def check_bls_kernels(torch, dev, report) -> None:
+    """Hold both BLS kernels against their plain versions on the card at
+    buckets 4, 16 and 64, exactly (the final Fq12 limbs and the
+    verdicts), check the lanes' verdicts against the host oracle, hold
+    `bls_hard_pow` once more with a short exponent, then time each
+    kernel per bucket: device time under torch.profiler (BLS_ROUNDS
+    calls, a session each), one call with CUDA events, and the plain
+    version's call (the holding run, synchronized)."""
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.ops import bls12 as pb
+    items, want = bls_items(bls)
+    n = len(items)
+    lines16 = pb._pack_miller_lines(items, 16)   # lanes n.. are pad lanes
+    easy = pb._pack([bls.final_exp_easy(bls.miller_product(it))
+                     for it in items] + [bls.F12_ONE])
+    bits = torch.tensor(pb.HARD_BITS, dtype=torch.int32, device=dev)
+    short = torch.tensor(pb.HARD_BITS[:40], dtype=torch.int32, device=dev)
+    calls = {}
+    for name in ("bls_miller_finalexp", "bls_hard_pow"):
+        report[name] = {"by_bucket": {}, "max_abs_err": 0}
+    for bucket in BLS_BUCKETS:
+        idx = _bls_lanes(n, bucket)
+        lines_np = np.ascontiguousarray(lines16[..., idx])
+        lines = torch.from_numpy(lines_np).to(dev)
+        arr = torch.from_numpy(np.ascontiguousarray(easy[..., idx])).to(dev)
+        lane_want = [want[i] if i < n else True for i in idx]
+        for name, fn, plain, x in (
+                ("bls_miller_finalexp", pb.bls_miller_finalexp,
+                 pb.bls_miller_finalexp_plain, lines),
+                ("bls_hard_pow", pb.bls_hard_pow, pb.bls_hard_pow_plain,
+                 arr)):
+            out, ok = fn(x, bits)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pout, pok = plain(x, bits)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = int((out.long() - pout.long()).abs().max())
+            if err or not torch.equal(ok, pok) or ok.tolist() != lane_want:
+                raise AssertionError(
+                    f"{name} at bucket {bucket}: max_abs_err {err}, "
+                    f"verdicts {ok.tolist()}, plain {pok.tolist()}, host "
+                    f"oracle {lane_want}")
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              err)
+            report[name]["by_bucket"][bucket] = {
+                "plain_ms": plain_ms,
+                "call_ms": _median_ms(torch, lambda: fn(x, bits), 3),
+                "bound": _bound_ms(
+                    _bls_mads(name, pb.HARD_BITS, lines_np),
+                    _bls_bytes(name, bucket, len(pb.HARD_BITS)))}
+            calls[(name, bucket)] = (fn, x)
+        if bucket == 16:
+            out, ok = pb.bls_hard_pow(arr, short)
+            pout, pok = pb.bls_hard_pow_plain(arr, short)
+            if not (torch.equal(out, pout) and torch.equal(ok, pok)):
+                raise AssertionError("bls_hard_pow, short exponent")
+    # device times: BLS_ROUNDS calls of each (kernel, bucket), one
+    # torch.profiler session each; where the profiler keeps none of them,
+    # `ms` is the CUDA events' time of one call (the kernel and the
+    # ctypes enqueue, tens of microseconds, before it)
+    for (name, bucket), (fn, x) in calls.items():
+        ms, seen, tries = _bls_device_ms(torch, fn, x, bits, name)
+        f = report[name]["by_bucket"][bucket]
+        f.update(profiler_ms=ms, profiled_events=seen, profile_tries=tries,
+                 ms=f["call_ms"] if ms is None else ms,
+                 ms_source="cuda events" if ms is None
+                 else "torch.profiler")
+    for name in ("bls_miller_finalexp", "bls_hard_pow"):
+        r = report[name]
+        top = r["by_bucket"][BLS_BUCKETS[-1]]
+        r.update(ms=top["ms"], ms_source=top["ms_source"],
+                 call_ms=top["call_ms"],
+                 plain_ms=top["plain_ms"], bound=top["bound"])
+        print(f"{name}: " + "; ".join(
+            f"B={b} device {v['ms']:.3f} ms ({v['ms_source']}, "
+            f"{v['profiled_events']} of {BLS_ROUNDS} profiled), call "
+            f"{v['call_ms']:.3f} ms, "
+            f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), plain "
+            f"{v['plain_ms']:.1f} ms" for b, v in r["by_bucket"].items()),
+            flush=True)
+
+
+def _bls_device_ms(torch, fn, x, bits, name) -> tuple:
+    """The median device ms of BLS_ROUNDS calls of one BLS kernel under
+    torch.profiler, the events the profiler kept, and the sessions it
+    took: a session that loses events runs again, up to PROFILE_TRIES,
+    and the median is taken over the events the last session kept (None
+    if it kept none: on the H100 a session alone after the builds kept
+    every launch, one long session over every BLS call 20 of 30, and a
+    session after the RLC kernels' profiles once none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fns = _source_fns(name)
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(BLS_ROUNDS):
+                fn(x, bits)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_TAIL_S)
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and _kernel_name(e) in fns]
+        if len(us) == BLS_ROUNDS:
+            break
+    return (float(np.median(us)) / 1e3 if us else None), len(us), tries
+
+
+class CheckerCalls:
+    """Counts the PairingChecker and FinalExpChecker calls that had
+    pending work while installed: each such call of at most 62 items
+    is one kernel launch (its items and the 2 canary items fit bucket
+    64), so the BLS launch counts must equal these calls."""
+
+    def __init__(self):
+        from cometbft_tpu_torch.aggsig import verify as aggv
+        self.classes = (aggv.PairingChecker, aggv.FinalExpChecker)
+        self.orig = [c.check for c in self.classes]
+        self.calls = {c.__name__: 0 for c in self.classes}
+        for cls, orig in zip(self.classes, self.orig):
+            def counted(chk, items, _orig=orig, _name=cls.__name__):
+                if items:
+                    self.calls[_name] += 1
+                return _orig(chk, items)
+            cls.check = counted
+
+    def close(self) -> None:
+        for cls, orig in zip(self.classes, self.orig):
+            cls.check = orig
+
+
+def _agg_chain(seed: int, n_blocks: int, n_validators: int, chain_id: str,
+               aggregate: bool = True):
+    """A BLS chain through the real executor on the card, and the
+    generator's app."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.engine.chain_gen import generate_chain
+    apps = []
+
+    def app_factory():
+        apps.append(KVStoreApplication())
+        return apps[-1]
+    t0 = time.perf_counter()
+    chain = generate_chain(n_blocks=n_blocks, n_validators=n_validators,
+                           txs_per_block=1, chain_id=chain_id, seed=seed,
+                           key_type="bls12_381", aggregate=aggregate,
+                           app_factory=app_factory, device="cuda")
+    return chain, apps[0], time.perf_counter() - t0
+
+
+def _admit(torch, pops: dict) -> dict:
+    """register_pops_batch from an empty registry, timed and counted."""
+    from cometbft_tpu_torch.aggsig import aggregate as agg
+    from cometbft_tpu_torch.ops import bls12 as pb
+    agg.reset_pop_registry()
+    torch.cuda.synchronize()
+    pb.reset_launches()
+    t0 = time.perf_counter()
+    ok = agg.register_pops_batch(dict(pops))
+    torch.cuda.synchronize()
+    return {"ok": ok, "wall_s": time.perf_counter() - t0,
+            "admitted": [agg.has_pop(p) for p in pops],
+            "launches": dict(pb.LAUNCHES)}
+
+
+def run_aggsig_genesis(torch, seed: int) -> dict:
+    """Pass 1: genesis PoP admission of an AGG_SET-validator BLS set, on
+    the host RLC route from a cold process, clean and, over the first
+    AGG_BAD_HOST keys, with key AGG_BAD's PoP replaced by another key's
+    (a failed RLC round verifies every key alone); then on the kernel
+    route (`bls_miller_finalexp` prewarmed at bucket 64: AGG_SET + 2
+    canary lanes in chunks of 64, 3 launches), clean and with the bad
+    PoP, which must be rejected exactly and as the host route rejects
+    it. Returns the figures and the set's chain, whose height-1 seal
+    pass 2 verifies."""
+    from cometbft_tpu_torch.aggsig import aggregate as agg
+    from cometbft_tpu_torch.aggsig import verify as aggv
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.ops import bls12 as pb
+    pb.reset_launched()
+    chain, _app, gen_s = _agg_chain(seed, 2, AGG_SET, "aggsig-set")
+    pops = dict(chain.genesis.bls_pops)
+    pubs = list(pops)
+    out = {"set_chain_s": gen_s}
+    pb.reset_launched()
+    bad = dict(pops)
+    bad[pubs[AGG_BAD]] = pops[pubs[AGG_BAD + 1]]    # another key's PoP
+    pb.reset_launched()                             # a cold process
+    out["host_clean"] = _admit(torch, pops)
+    out["host_bad"] = _admit(torch, {p: bad[p] for p in pubs[:AGG_BAD_HOST]})
+    q = bls.G2_GEN
+    bucket = pb.bucket_for(len(pops) + 2)
+    t0 = time.perf_counter()
+    aggv.shared_pairing().check(
+        [[(bls.G1_NEG, q), (bls.G1_GEN, q)]] * (bucket - 2))
+    torch.cuda.synchronize()
+    out["prewarm_s"] = time.perf_counter() - t0
+    if not pb.launched("bls_miller_finalexp", bucket):
+        raise AssertionError(f"the prewarm did not launch at {bucket}")
+    out["kernel_clean"] = _admit(torch, pops)
+    out["kernel_bad"] = _admit(torch, bad)
+    chunks = -(-(len(pops) + 2) // pb.BUCKETS[-1])
+    for k, want_ok, want_l in (("host_clean", True, 0),
+                               ("host_bad", False, 0),
+                               ("kernel_clean", True, chunks),
+                               ("kernel_bad", False, chunks)):
+        f = out[k]
+        admitted = [i != AGG_BAD or want_ok
+                    for i in range(len(f["admitted"]))]
+        if f["ok"] != want_ok or f["admitted"] != admitted or \
+                f["launches"]["bls_miller_finalexp"] != want_l:
+            raise AssertionError(f"PoP admission, {k}: {f}")
+    if out["host_bad"]["admitted"] != \
+            out["kernel_bad"]["admitted"][:AGG_BAD_HOST]:
+        raise AssertionError("the two routes disagree on the bad PoP")
+    agg.register_pops_batch(pops)                # the bad key's own PoP
+    return out, chain
+
+
+def _flip(b: bytes, i: int) -> bytes:
+    return b[:i] + bytes([b[i] ^ 1]) + b[i + 1:]
+
+
+def run_aggsig_commits(torch, seed: int, set_chain) -> dict:
+    """Pass 2: `verify_commit` of the AGG_SET-signer aggregated commit on
+    the card (one `bls_miller_finalexp` launch at bucket 4), and with a
+    flipped aggregate byte (AggregateVerificationError). Pass 3: a
+    multi-group aggregate, `from_commit` of a plain commit of AGG_GROUPS
+    validators with per-validator timestamps (AGG_GROUPS + 1 pairs: the
+    host Miller product, then one `bls_hard_pow` launch), clean and with
+    one lane signed over another message (it must fail)."""
+    from cometbft_tpu_torch.aggsig import verify as aggv
+    from cometbft_tpu_torch.ops import bls12 as pb
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.types.agg_commit import from_commit
+
+    def verify(chain, h, commit):
+        reset_shared_cache()
+        torch.cuda.synchronize()
+        pb.reset_launches()
+        t0 = time.perf_counter()
+        err = None
+        try:
+            validation.verify_commit(chain.chain_id, chain.valsets[h - 1],
+                                     chain.block_ids[h - 1], h, commit)
+        except validation.CommitVerificationError as e:
+            err = type(e).__name__
+        torch.cuda.synchronize()
+        return {"wall_s": time.perf_counter() - t0, "error": err,
+                "launches": dict(pb.LAUNCHES)}
+    seal = set_chain.seen_commits[0]
+    out = {"set_clean": verify(set_chain, 1, seal),
+           "set_flipped": verify(set_chain, 1, dataclasses.replace(
+               seal, agg_sig=_flip(seal.agg_sig, 1)))}
+    groups, _app, gen_s = _agg_chain(seed, 1, AGG_GROUPS, "aggsig-groups",
+                                     aggregate=False)
+    plain = groups.seen_commits[0]
+    val0 = groups.valsets[0].validators[0]
+    wrong = groups.keys[val0.address].sign(b"another message, 32 bytes or more")
+    tampered = dataclasses.replace(plain, signatures=[
+        dataclasses.replace(cs, signature=wrong) if i == 0 else cs
+        for i, cs in enumerate(plain.signatures)])
+    out["groups_chain_s"] = gen_s
+    out["groups_clean"] = verify(groups, 1, from_commit(plain))
+    out["groups_tampered"] = verify(groups, 1, from_commit(tampered))
+    for k, err, launches in (
+            ("set_clean", None, {"bls_miller_finalexp": 1,
+                                 "bls_hard_pow": 0}),
+            ("set_flipped", "AggregateVerificationError", None),
+            ("groups_clean", None, {"bls_miller_finalexp": 0,
+                                    "bls_hard_pow": 1}),
+            ("groups_tampered", "AggregateVerificationError",
+             {"bls_miller_finalexp": 0, "bls_hard_pow": 1})):
+        f = out[k]
+        if f["error"] != err or (launches is not None and
+                                 f["launches"] != launches):
+            raise AssertionError(f"verify_commit, {k}: {f}")
+    if aggv.shared_pairing().canary_failures:
+        raise AssertionError("a BLS canary failed")
+    return out
+
+
+class KernelClock:
+    """CUDA events around every call of the two BLS kernel wrappers while
+    installed (ops/bls12 looks them up as module globals, so the entry
+    points call the timed ones): each launch's device time (the stream
+    runs nothing else between the two events, so the interval is the
+    kernel and the ctypes enqueue before it). torch.profiler kept none of
+    an aggregated sync's launches in one run on the H100, where it kept every
+    launch of the kernel holds."""
+
+    def __init__(self, torch):
+        from cometbft_tpu_torch.ops import bls12 as pb
+        self.torch, self.pb = torch, pb
+        self.orig = {n: getattr(pb, n) for n in BLS_KERNELS}
+        self.marks: list = []
+        for name, fn in self.orig.items():
+            def timed(x, bits, _fn=fn, _name=name):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(x, bits)
+                end.record()
+                self.marks.append((_name, x.shape[-1], start, end))
+                return out
+            setattr(pb, name, timed)
+
+    def close(self) -> list:
+        """Restore the wrappers -> [(kernel, bucket, device ms)]."""
+        for name, fn in self.orig.items():
+            setattr(self.pb, name, fn)
+        self.torch.cuda.synchronize()
+        return [(n, b, s.elapsed_time(e)) for n, b, s, e in self.marks]
+
+
+def run_aggsig_sync(torch, chain, gen_app, seed: int, depth: int,
+                    corrupt=None) -> dict:
+    """One catch-up from genesis over the aggregated chain on the card
+    through `BlocksyncReactor(tile_size=AGG_TILE)` at `depth`; it must
+    reach the generator's state. Every PairingChecker call with pending
+    work is one `bls_miller_finalexp` launch, and a pass makes at least
+    one. Each launch's device time (KernelClock) gives the card's busy
+    time and idle share over the sync."""
+    from cometbft_tpu_torch import trace
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.db.kv import MemDB
+    from cometbft_tpu_torch.engine.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.engine.chain_gen import LocalChainSource
+    from cometbft_tpu_torch.ops import bls12 as pb
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    reset_shared_cache()
+    app = KVStoreApplication()
+    app.init_chain(chain.chain_id, 1, [], b"")
+    src = LocalChainSource(chain, dict(corrupt or {}))
+    reactor = BlocksyncReactor(
+        BlockExecutor(app, device="cuda"), BlockStore(MemDB()), src,
+        chain.chain_id, tile_size=AGG_TILE, batch_size=64,
+        pipeline_depth=depth, device="cuda")
+    state0 = State.from_genesis(chain.genesis)
+    _, recorder = trace.enable(seed=seed)
+    counter = CheckerCalls()
+    clock = KernelClock(torch)
+    try:
+        torch.cuda.synchronize()
+        pb.reset_launches()
+        t0 = time.perf_counter()
+        state = reactor.sync(state0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(pb.LAUNCHES)
+        spans = recorder.snapshot()
+    finally:
+        marks = clock.close()
+        counter.close()
+        trace.disable()
+    top = chain.max_height()
+    if state.last_block_height != top or \
+            state.app_hash != gen_app.last_app_hash or \
+            app.state != gen_app.state:
+        raise AssertionError(f"aggregated sync, depth {depth}: stopped at "
+                             f"{state.last_block_height} or its app state "
+                             f"differs from the generator's")
+    calls = counter.calls["PairingChecker"]
+    if launches["bls_miller_finalexp"] != calls or not calls or \
+            launches["bls_hard_pow"] != counter.calls["FinalExpChecker"] \
+            or len(marks) != sum(launches.values()):
+        raise AssertionError(f"aggregated sync, depth {depth}: launches "
+                             f"{launches}, checker calls {counter.calls}, "
+                             f"timed {len(marks)}")
+    span_s: dict = {}
+    for sp in spans:
+        span_s[sp["name"]] = span_s.get(sp["name"], 0.0) + \
+            (sp["t1"] - sp["t0"]) / 1e9
+    busy = sum(ms for _n, _b, ms in marks) / 1e3
+    return {"depth": depth, "wall_s": wall, "commits_per_s": top / wall,
+            "banned": list(src.banned), "launches": launches,
+            "checker_calls": dict(counter.calls),
+            "kernel_ms_by_bucket": [(b, ms) for _n, b, ms in marks],
+            "device_busy_s": busy, "idle_share": 1 - busy / wall,
+            "marshal_s": span_s.get("aggsig.marshal", 0.0),
+            "settle_s": span_s.get("aggsig.settle", 0.0),
+            "span_s": span_s}
+
+
+def run_aggsig(torch, seed: int) -> dict:
+    """The aggsig paths on the card (PERF.md §2-§5): genesis admission,
+    verify_commit of the AGG_SET-signer and of a multi-group aggregate,
+    and aggregated catch-up over an AGG_BLOCKS-block chain of
+    AGG_VALIDATORS validators at depth 1 (profiled) and 2, and tampered
+    at one height (a ban, then the sync completes). Each pass resets the
+    signature cache; the launch counts of the passes are summed."""
+    from cometbft_tpu_torch.aggsig import aggregate as agg
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["genesis"], set_chain = run_aggsig_genesis(torch, seed)
+    out["genesis"]["pass_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["commits"] = run_aggsig_commits(torch, seed, set_chain)
+    out["commits"]["pass_s"] = time.perf_counter() - t0
+    agg.reset_pop_registry()
+    chain, gen_app, gen_s = _agg_chain(seed, AGG_BLOCKS, AGG_VALIDATORS,
+                                       "aggsig-chain")
+    out["chain_s"] = gen_s
+    syncs = {}
+    t0 = time.perf_counter()
+    for name, depth in (("depth1", 1), ("depth2", 2), ("depth2_repeat", 2),
+                        ("depth1_repeat", 1)):
+        syncs[name] = run_aggsig_sync(torch, chain, gen_app, seed, depth)
+    h = AGG_BLOCKS // 2
+    syncs["tampered"] = run_aggsig_sync(torch, chain, gen_app, seed, 1,
+                                        corrupt={h: "sig"})
+    if not syncs["tampered"]["banned"] or \
+            any(f["banned"] for k, f in syncs.items() if k != "tampered"):
+        raise AssertionError(f"aggregated syncs banned "
+                             f"{ {k: f['banned'] for k, f in syncs.items()} }")
+    out["sync"] = syncs
+    out["sync_pass_s"] = time.perf_counter() - t0
+    out["launches"] = {k: sum(f["launches"][k] for f in syncs.values())
+                       for k in ("bls_miller_finalexp", "bls_hard_pow")}
+    out["launches_commits"] = {
+        k: sum(f["launches"][k] for f in out["commits"].values()
+               if isinstance(f, dict) and "launches" in f)
+        for k in ("bls_miller_finalexp", "bls_hard_pow")}
+    return out
+
+
+def print_aggsig(aggsig: dict, gpu: str) -> None:
+    gs, cm, sy = aggsig["genesis"], aggsig["commits"], aggsig["sync"]
+    print(f"aggsig: genesis admission of {AGG_SET} PoPs "
+          f"{gs['host_clean']['wall_s']:.3f} s on the host RLC route (cold), "
+          f"{gs['kernel_clean']['wall_s']:.3f} s on the kernel route "
+          f"({gs['kernel_clean']['launches']['bls_miller_finalexp']} "
+          f"launches), bad PoP rejected on both; verify_commit of the "
+          f"{AGG_SET}-signer aggregate {cm['set_clean']['wall_s']:.3f} s, "
+          f"multi-group ({AGG_GROUPS + 1} pairs) "
+          f"{cm['groups_clean']['wall_s']:.3f} s; {AGG_BLOCKS}-block chain "
+          f"of {AGG_VALIDATORS} validators generated in "
+          f"{aggsig['chain_s']:.1f} s, synced in "
+          f"{sy['depth1']['wall_s']:.3f}, {sy['depth1_repeat']['wall_s']:.3f} "
+          f"s at depth 1 ({sy['depth1']['commits_per_s']:.1f} commits/s; "
+          f"marshal {sy['depth1']['marshal_s']:.3f} s, settle "
+          f"{sy['depth1']['settle_s']:.3f} s; kernel (bucket, device ms) "
+          f"{sy['depth1']['kernel_ms_by_bucket']}; card idle "
+          f"{sy['depth1']['idle_share']:.3f}), {sy['depth2']['wall_s']:.3f}, "
+          f"{sy['depth2_repeat']['wall_s']:.3f} s at depth 2; tampered: "
+          f"banned {sy['tampered']['banned']}; passes "
+          f"{gs['pass_s']:.1f}, {cm['pass_s']:.1f}, "
+          f"{aggsig['sync_pass_s']:.1f} s; {gpu}", flush=True)
+
+
+def bls_kernel_rows(report: dict, aggsig: dict) -> list:
+    """The kernels line's rows of the two BLS kernels: launches from each
+    kernel's own path (the aggregated catch-up for the fused kernel, the
+    multi-group verify_commit for the hard chain), times and bounds at
+    bucket 64, and every bucket and path beside them."""
+    gs, cm, sy = aggsig["genesis"], aggsig["commits"], aggsig["sync"]
+    rows = []
+    paths = {"bls_miller_finalexp": ("aggregated catch-up",
+                                     aggsig["launches"]),
+             "bls_hard_pow": ("multi-group verify_commit",
+                              {k: cm["groups_clean"]["launches"][k] +
+                               cm["groups_tampered"]["launches"][k]
+                               for k in BLS_KERNELS})}
+    for name, (src, line) in BLS_KERNELS.items():
+        r = report[name]
+        path, counts = paths[name]
+        if not counts[name]:
+            raise AssertionError(f"{name}: no launch on its path ({path})")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"cometbft_tpu_torch/csrc/{src}",
+            "replaces": f"cometbft_tpu/ops/bls12.py:{line}",
+            "replaces_kind": "XLA program (jit), not Pallas",
+            "launches": counts[name], "launches_path": path,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "ms_source": r["ms_source"],
+            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None, "bucket": BLS_BUCKETS[-1],
+            "by_bucket": r["by_bucket"],
+            "launches_genesis": {
+                k: gs[k]["launches"][name] for k in
+                ("host_clean", "host_bad", "kernel_clean", "kernel_bad")},
+            "launches_verify_commit": {
+                k: cm[k]["launches"][name] for k in
+                ("set_clean", "set_flipped", "groups_clean",
+                 "groups_tampered")},
+            "launches_catchup": {k: f["launches"][name]
+                                 for k, f in sy.items()}})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # generate_chain's own default; with it, the signature tampered at
@@ -1814,6 +2458,11 @@ def main(argv=None) -> int:
           f"window sums; epilogue at M = {report['rlc_epilogue']['m_held']})",
           flush=True)
     where = breakdown(torch, pkg, tile, dev)
+    check_bls_kernels(torch, dev, report)
+    print(f"bls kernels match their plain versions at B = "
+          f"{', '.join(map(str, BLS_BUCKETS))} (final Fq12 limbs and "
+          f"verdicts, max_abs_err 0; lanes against the host oracle; "
+          f"bls_hard_pow also at a 40-bit exponent)", flush=True)
 
     # phase 4: the paths, counts zeroed just before each, read just after
     rlc = ("pt_decompress_tiled", "rlc_window_sums", "rlc_epilogue")
@@ -1891,6 +2540,9 @@ def main(argv=None) -> int:
           f"launches {mixed['launches']}; "
           f"host ms a signature {mixed['host_ms']}", flush=True)
 
+    aggsig = run_aggsig(torch, args.seed)
+    print_aggsig(aggsig, gpu)
+
     cv.reset_launches()
     run_pt_add_ab(torch, pkg, add_args, report)
     ab = _read_path(cv.LAUNCHES, "pt_add_tiled A/B", ("pt_add_tiled",))
@@ -1935,6 +2587,7 @@ def main(argv=None) -> int:
         if name == "pt_add_tiled":
             row["launches"] = ab[name]      # its own phase: the A/B
         kernels.append(row)
+    kernels += bls_kernel_rows(report, aggsig)
     for fig in (sync, bad):
         fig["verify_s"] = fig["span_s"].get("blocksync.verify", 0.0)
         fig["fetch_s"] = fig["span_s"].get("blocksync.fetch", 0.0)
@@ -1947,7 +2600,8 @@ def main(argv=None) -> int:
         "blocksync": {"clean": sync, "tampered": bad,
                       "tampered_r_decodes": r_decodes},
         "pipeline": pipe, "device_server": server,
-        "light_client": light, "mixed_set": mixed,
+        "light_client": light, "mixed_set": mixed, "aggsig": aggsig,
+        "bls_kernels": {k: report[k] for k in BLS_KERNELS},
         "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,
         "breakdown": where, "lanes": LANES,

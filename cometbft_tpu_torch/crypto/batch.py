@@ -6,9 +6,10 @@ ed25519 batches run on the port's kernels (on `device`, default cuda),
 sr25519 batches on the host (`crypto/sr25519.py`), and secp256k1 has no
 batch form, in the reference or here. `MixedBatchVerifier` buckets a
 mixed-curve set by key type and hands `batch_size` and `device` to its
-ed25519 bucket. BLS (`bls12_381`) raises NotImplementedError naming its
-ROADMAP.md item (aggsig): a `(None, False)` answer would send BLS lanes
-down the per-signature path without a word.
+ed25519 bucket. BLS (`bls12_381`) batches run on the host
+(`aggsig/aggregate.BlsBatchVerifier`: one random-linear-combination
+multi-pairing, per-signature attribution when it fails), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -40,16 +41,18 @@ def create_batch_verifier(pk: PubKey, batch_size: Optional[int] = None,
         from .sr25519 import Sr25519BatchVerifier
         return Sr25519BatchVerifier(), True
     if pk.type_() == "bls12_381":
-        raise NotImplementedError(
-            "the BLS batch verifier is not ported yet (ROADMAP.md Queue 1: "
-            "aggsig)")
+        # one multi-pairing (random-linear-combination) over the whole
+        # batch with a single shared final exponentiation, per-sig
+        # fallback for attribution — so MixedBatchVerifier handles
+        # mixed-curve vote sets instead of silently going per-sig
+        from ..aggsig.aggregate import BlsBatchVerifier
+        return BlsBatchVerifier(), True
     return None, False
 
 
 def supports_batch_verifier(pk: PubKey) -> bool:
     """reference crypto/batch/batch.go:25-35 (secp256k1 has no batch
-    form, exactly like the reference: callers fall back to per-sig). The
-    JAX package also lists bls12_381, whose verifier the port lacks."""
+    form, exactly like the reference: callers fall back to per-sig)."""
     return pk is not None and pk.type_() in (ED25519_KEY_TYPE, "sr25519",
                                              "bls12_381")
 

@@ -161,8 +161,9 @@ def privkey_from_type_bytes(key_type: str, raw: bytes) -> PrivKey:
     """Private-key factory by wire type string (the decode side of
     FilePV state files, which persist (type, raw) so a key round-trips
     with its type). sr25519 keys are 64 bytes (scalar seed and nonce
-    seed, `Sr25519PrivKey.bytes_`), secp256k1 keys 32; the JAX package
-    reads neither here, and the port's copy adds both."""
+    seed, `Sr25519PrivKey.bytes_`), secp256k1 keys 32 and BLS keys 32;
+    the JAX package reads ed25519 and BLS keys only, and the port's copy
+    adds the other two."""
     if key_type == ED25519_KEY_TYPE:
         return Ed25519PrivKey(raw)
     if key_type == "sr25519":
@@ -174,8 +175,8 @@ def privkey_from_type_bytes(key_type: str, raw: bytes) -> PrivKey:
         from .secp256k1 import Secp256k1PrivKey
         return Secp256k1PrivKey(raw)
     if key_type == "bls12_381":
-        raise NotImplementedError(
-            "bls12_381 keys are not ported yet (ROADMAP.md Queue 1: aggsig)")
+        from .bls12381 import Bls12381PrivKey
+        return Bls12381PrivKey(raw)
     raise ValueError(f"unsupported privval key type {key_type!r}")
 
 
@@ -193,6 +194,8 @@ def pubkey_from_type_bytes(key_type: str, raw: bytes) -> PubKey:
         from .sr25519 import Sr25519PubKey
         return Sr25519PubKey(raw)
     if key_type == "bls12_381":
-        raise NotImplementedError(
-            "bls12_381 keys are not ported yet (ROADMAP.md Queue 1: aggsig)")
+        # pure-Python curve (reference gates this type behind a blst
+        # build tag, crypto/bls12381/key_bls12381.go:1)
+        from .bls12381 import Bls12381PubKey
+        return Bls12381PubKey(raw)
     raise ValueError(f"unknown key type {key_type!r}")

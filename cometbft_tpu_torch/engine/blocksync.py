@@ -35,14 +35,15 @@ Port of `cometbft_tpu/engine/blocksync.py`. What differs:
   watchdog's deadline, where a miss raises;
 - a commit over a non-ed25519 or mixed validator set is verified at
   marshal through `validation.verify_commit` (its `MixedBatchVerifier`
-  sends the ed25519 lanes to `device`) and settles as a `DecidedSeal`,
-  where the JAX package settles an `aggsig.verify.AggSeal("ok"|"fail")`;
+  sends the ed25519 lanes to `device`) and settles as an
+  `aggsig.verify.AggSeal("ok"|"fail")`, as in the JAX package;
+- an aggregated (BLS) commit is marshaled by `aggsig.verify.
+  prepare_full_commit`, and `settle_tile` settles the tile's pending
+  pairing equations in one `settle_seals` call on `device` (the fused
+  `bls_miller_finalexp` kernel on the card);
 - mesh routing (COMETBFT_TPU_MESH_VERIFY exactly "1" on a host with
   more than one card, the JAX package's `mesh_available`) raises
   NotImplementedError naming its ROADMAP.md item (mesh and multi-GPU).
-  Aggregated (BLS) commits, whose seals the JAX package leaves pending
-  for a batched pairing, never get this far: `Commit.decode` raises on
-  their wire form (aggsig).
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..aggsig.verify import AggSeal, prepare_full_commit, settle_seals
 from ..device import resolve_device
 from ..ops.ed25519 import prewarm_verify_kernels, verify_batch
 from ..state.execution import BlockExecutor, BlockValidationError
@@ -62,6 +64,7 @@ from ..state.state import State
 from ..store.blockstore import BlockStore
 from ..trace import shared_tracer
 from ..types import validation
+from ..types.agg_commit import AggregatedCommit
 from ..types.block import Block, BlockID
 from ..types.validator import ValidatorSet
 
@@ -86,27 +89,16 @@ class TileEntry:
     commit_ok: Optional[bool] = None
 
 
-class DecidedSeal:
-    """A commit whose verdict marshal already decided: one over a
-    non-ed25519 or mixed validator set, verified whole by
-    `validation.verify_commit`. It stands in the rows' place of the
-    marshal's result, and `settle_tile` copies `ok` into the entry."""
-
-    __slots__ = ("ok",)
-
-    def __init__(self, ok: bool):
-        self.ok = ok
-
-
 def marshal_commit(chain_id: str, e: TileEntry, pubs: List[bytes],
                    msgs: List[bytes], sigs: List[bytes], cache=None,
                    device=None):
     """Marshal one commit's non-absent signatures into the lane lists;
     returns (entry, rows, needed) with rows=None on structural
     rejection. Each row is (lane, power, counted); lane=-1 marks a
-    verified-signature-cache hit that occupies no device lane. A commit
-    over a non-ed25519 or mixed set adds no lanes: rows is then a
-    `DecidedSeal`, and `device` is where its ed25519 lanes verify.
+    verified-signature-cache hit that occupies no device lane. An
+    aggregated commit, or a commit over a non-ed25519 or mixed set, adds
+    no lanes: rows is then an `AggSeal`, and `device` is where a mixed
+    set's ed25519 lanes verify.
 
     Standalone (not a verifier method) because this IS the pipeline's
     host marshal stage: the scheduler runs it for tile N+1 while the
@@ -118,19 +110,28 @@ def marshal_commit(chain_id: str, e: TileEntry, pubs: List[bytes],
     if commit.height != e.height or commit.block_id != e.block_id:
         return e, None, 0
     needed = vals.total_voting_power() * 2 // 3
+    if isinstance(commit, AggregatedCommit):
+        # BLS aggregate seal: the whole-commit check is marshaled here
+        # (structure, tally, PoP gate, pair grouping — all host work,
+        # exactly this stage's job) and the pairing equation itself —
+        # Miller loops AND final exponentiation — is left for
+        # settle_tile, which batches it across the tile
+        return e, prepare_full_commit(chain_id, vals, commit, needed,
+                                      cache=cache), needed
     if any(v.pub_key.type_() != "ed25519" for v in vals.validators):
         # plain per-lane commit on a non-ed25519 (or mixed) valset:
         # the flat lanes below feed the ed25519 kernels, which reject
         # every foreign-curve signature. Verify it here with full
         # semantics through the generic dispatch seam instead (its
         # MixedBatchVerifier batches the ed25519 lanes on `device`);
-        # the verdict is decided before settle time
+        # the verdict is decided before settle time (AggSeal
+        # "ok"/"fail", no pending work)
         try:
             validation.verify_commit(chain_id, vals, e.block_id,
                                      e.height, commit, device=device)
-            return e, DecidedSeal(True), needed
+            return e, AggSeal("ok", None), needed
         except validation.CommitVerificationError:
-            return e, DecidedSeal(False), needed
+            return e, AggSeal("fail", None), needed
     rows = []
     for idx, cs in enumerate(commit.signatures):
         if cs.absent_():
@@ -189,14 +190,22 @@ def mesh_available() -> bool:
     return torch.cuda.device_count() > 1
 
 
-def settle_tile(metas, out, pubs, msgs, sigs, cache=None) -> None:
+def settle_tile(metas, out, pubs, msgs, sigs, cache=None,
+                device=None) -> None:
     """Map per-lane verdicts back to per-commit results with FULL
     verify_commit semantics (every included signature valid AND for-block
-    power > 2/3); newly verified-true lanes feed the cache. A commit
-    marshaled as a `DecidedSeal` takes its verdict."""
+    power > 2/3); newly verified-true lanes feed the cache. Commits
+    marshaled as AggSeals settle in ONE batched pairing call (Miller
+    loops + final exp) for the whole tile, on `device`."""
+    agg = [(e, rows) for e, rows, _n in metas
+           if isinstance(rows, AggSeal)]
+    if agg:
+        for (e, _s), ok in zip(agg, settle_seals([s for _e, s in agg],
+                                                 cache=cache,
+                                                 device=device)):
+            e.commit_ok = ok
     for e, rows, needed in metas:
-        if isinstance(rows, DecidedSeal):
-            e.commit_ok = rows.ok
+        if isinstance(rows, AggSeal):
             continue
         if rows is None:  # structural failure already decided
             e.commit_ok = False
@@ -234,7 +243,7 @@ class TiledCommitVerifier:
         metas = [marshal_commit(self.chain_id, e, pubs, msgs, sigs,
                                 self.cache, self.device) for e in entries]
         out = verify_lanes(pubs, msgs, sigs, self.batch_size, self.device)
-        settle_tile(metas, out, pubs, msgs, sigs, self.cache)
+        settle_tile(metas, out, pubs, msgs, sigs, self.cache, self.device)
 
 
 @dataclass

@@ -7,12 +7,13 @@ Port of `cometbft_tpu/engine/chain_gen.py`: RFC 8032 signing is
 deterministic and every hash and sign-bytes encoder is a copy, so
 `generate_chain(seed)` gives the JAX package's chain byte for byte. The
 executor that applies the generated blocks verifies each last commit on
-`device=` (default cuda). `ChainLightProvider` serves the chain to the
-light client. BLS keys and aggregated seals, and the seal source over a
-chain (`ChainSealSource`), are not ported yet (ROADMAP.md Queue 1:
-aggsig; sealsync). Validators sign with ed25519 keys only, as in the
-JAX package, which adds BLS: a mixed-curve set is built by hand and its
-commits signed with `sign_commit`, which takes any key type.
+`device=` (default cuda), aggregated commits too (their pairing
+equation through `aggsig`'s kernels). `ChainLightProvider` serves the
+chain to the light client. Validators sign with ed25519 or BLS keys, as
+in the JAX package: a mixed-curve set is built by hand and its commits
+signed with `sign_commit`, which takes any key type.
+`ChainSealSource.fetch_seals` needs `sealsync/`, which is not ported yet
+(ROADMAP.md Queue 1 item 7: sealsync), and raises.
 """
 
 from __future__ import annotations
@@ -54,20 +55,25 @@ def make_genesis(n_validators: int, chain_id: str = "tpu-chain",
                  key_type: str = "ed25519"
                  ) -> Tuple[GenesisDoc, Dict[bytes, Ed25519PrivKey]]:
     rng = random.Random(seed)
+    pops = {}
     if key_type == "bls12_381":
-        raise NotImplementedError(
-            "BLS validator keys are not ported yet (ROADMAP.md Queue 1: "
-            "aggsig)")
-    if key_type != "ed25519":
+        # genesis proofs of possession: verified + registered by
+        # State.from_genesis, admitting the keys to aggregation
+        from ..aggsig.aggregate import deterministic_keys_with_pops
+        keys, pops = deterministic_keys_with_pops(n_validators, rng)
+    elif key_type == "ed25519":
+        keys = [Ed25519PrivKey(bytes(rng.randrange(256)
+                                     for _ in range(32)))
+                for _ in range(n_validators)]
+    else:
         # the JAX package signs with ed25519 keys for any type but BLS
         raise ValueError(f"make_genesis makes ed25519 or BLS keys, not "
                          f"{key_type!r}")
-    keys = [Ed25519PrivKey(bytes(rng.randrange(256) for _ in range(32)))
-            for _ in range(n_validators)]
     vals = [Validator(k.pub_key(), power[i] if power else 10)
             for i, k in enumerate(keys)]
     gen = GenesisDoc(chain_id=chain_id, validators=vals,
-                     genesis_time=Timestamp(1_700_000_000, 0))
+                     genesis_time=Timestamp(1_700_000_000, 0),
+                     bls_pops=pops)
     return gen, {k.pub_key().address(): k for k in keys}
 
 
@@ -106,12 +112,10 @@ def generate_chain(n_blocks: int, n_validators: int = 4,
     BlockExecutor (on `device`, default cuda). `val_tx_heights` maps
     height -> raw val-update tx to exercise validator-set changes
     mid-chain (provide the matching signing keys via `extra_keys`).
-    BLS keys and aggregated seals (key_type="bls12_381",
-    aggregate=True) are not ported yet and raise."""
-    if aggregate:
-        raise NotImplementedError(
-            "aggregated commits are not ported yet (ROADMAP.md Queue 1: "
-            "aggsig)")
+    key_type="bls12_381" signs with BLS keys (genesis PoPs included);
+    aggregate=True additionally folds each commit into the
+    AggregatedCommit seal (uniform timestamps, so the whole commit is
+    one pairing group)."""
     gen, keys = make_genesis(n_validators, chain_id, seed,
                              key_type=key_type)
     for k in extra_keys or []:
@@ -137,7 +141,10 @@ def generate_chain(n_blocks: int, n_validators: int = 4,
             timestamp=Timestamp(1_700_000_000 + h, 0))
         block_id = BlockID(block.hash(), block.make_part_set().header)
         commit = sign_commit(chain_id, h, 0, block_id, state.validators,
-                             keys)
+                             keys, uniform_ts=aggregate)
+        if aggregate:
+            from ..types.agg_commit import maybe_aggregate
+            commit = maybe_aggregate(commit, state.validators)
         valsets.append(state.validators.copy())
         state, _ = executor.apply_block(state, block_id, block)
         blocks.append(block)
@@ -211,6 +218,53 @@ class LocalChainSource:
         self.corrupt.clear()
 
 
+class ChainSealSource:
+    """sealsync.SealSource over a generated chain (the JAX package's
+    in-memory seal provider, whose forgeries are `_forge_seal`'s modes,
+    served at `corrupt_heights` until ban()). `fetch_seals` needs
+    `sealsync/`, which the port does not carry yet, and raises naming
+    its ROADMAP.md item."""
+
+    def __init__(self, chain: GeneratedChain,
+                 corrupt_heights: Dict[int, str] | None = None):
+        self.chain = chain
+        self.corrupt = corrupt_heights or {}
+        self.banned: List[int] = []
+
+    def max_height(self) -> int:
+        return self.chain.max_height()
+
+    def fetch_seals(self, start: int, count: int):
+        raise NotImplementedError(
+            "seal sync is not ported yet (ROADMAP.md Queue 1 item 7: "
+            "sealsync)")
+
+    def ban(self, height: int) -> None:
+        self.banned.append(height)
+        self.corrupt.clear()
+
+
+def _forge_seal(chain: GeneratedChain, commit, mode: str):
+    """A forged aggregated seal: "sig" flips a byte of the aggregate
+    signature; "bitmap" aggregates only n-1 real signatures but keeps
+    the full-coverage bitmap (the pairing rejects it)."""
+    import dataclasses
+    if mode == "sig":
+        return dataclasses.replace(
+            commit, agg_sig=commit.agg_sig[:1]
+            + bytes([commit.agg_sig[1] ^ 1]) + commit.agg_sig[2:])
+    if mode == "bitmap":
+        from ..aggsig.aggregate import aggregate_signatures
+        vals = chain.valsets[commit.height - 1]
+        # uniform timestamps -> one canonical message for every lane
+        msg = commit.vote_sign_bytes(chain.chain_id, 0)
+        sigs = [chain.keys[v.address].sign(msg)
+                for v in vals.validators[:-1]]
+        return dataclasses.replace(commit,
+                                   agg_sig=aggregate_signatures(sigs))
+    raise ValueError(mode)
+
+
 def _sealing_header(chain: GeneratedChain):
     from ..types.block import Header
     return Header(chain_id=chain.chain_id,
@@ -223,6 +277,12 @@ def _corrupt_block(block: Block, mode: str) -> Block:
     import dataclasses
     if mode == "sig":
         lc = block.last_commit
+        from ..types.agg_commit import AggregatedCommit
+        if isinstance(lc, AggregatedCommit):
+            # the aggregated seal's analog of a flipped lane signature
+            # is a flipped aggregate byte (covered lanes carry none)
+            return Block(header=block.header, data=block.data,
+                         last_commit=_forge_seal(None, lc, "sig"))
         sigs = list(lc.signatures)
         s = sigs[0]
         sigs[0] = CommitSig(s.block_id_flag, s.validator_address,

@@ -1,11 +1,15 @@
-"""The two generated metrics structs the port uses: `PipelineMetrics`
+"""The three generated metrics structs the port uses: `PipelineMetrics`
 (the pipelined blocksync scheduler, its watchdog and the signature
-cache) and `DeviceMetrics` (the device health supervisor).
+cache), `DeviceMetrics` (the device health supervisor) and
+`AggsigMetrics` (aggregated-commit verification).
 
-Copied from `cometbft_tpu/libs/metrics_gen.py` (:23 and :43), which
+Copied from `cometbft_tpu/libs/metrics_gen.py` (:23, :43 and :103), which
 tools/metricsgen.py generates from the JAX package's
-libs/metrics_defs.py. The port keeps only these two; regenerate there
-and copy again if their definitions change."""
+libs/metrics_defs.py. The port keeps only these three; regenerate there
+and copy again if their definitions change. Two help texts say what the
+port does where it differs: `aggsig_aggregates_verified` is labelled by
+the device the kernels ran on, and a wrong canary raises
+(`aggsig_canary_failures`)."""
 
 from __future__ import annotations
 
@@ -44,3 +48,17 @@ class DeviceMetrics:
             'device_quarantines_total', 'Terminal verify-backend quarantines (corrupt verdicts)')
         self.canary_failures = reg.counter(
             'device_canary_failures', 'Device batches whose canary lanes answered wrong')
+
+
+class AggsigMetrics:
+    """Generated metrics struct (4 metrics)."""
+
+    def __init__(self, reg: Registry):
+        self.pairings_total = reg.counter(
+            'aggsig_pairings_total', 'Miller-loop evaluations spent verifying aggregated commits (the O(1)-per-commit evidence vs 2n per-signature)')
+        self.aggregates_verified = reg.counter(
+            'aggsig_aggregates_verified', 'Aggregated-commit final-exponentiation verdicts settled by the BLS kernels, by device (cuda vs cpu, where the plain versions run)', label_names=['backend'])
+        self.pop_rejections = reg.counter(
+            'aggsig_pop_rejections', 'Proof-of-possession failures (bad PoP at admission, or an aggregate signer without a registered PoP)')
+        self.canary_failures = reg.counter(
+            'aggsig_canary_failures', 'Kernel batches whose known-answer canaries answered wrong (KernelCanaryError raised; nothing re-runs on the CPU)')

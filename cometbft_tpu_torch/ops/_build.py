@@ -34,6 +34,9 @@ KERNELS = {
                         (_P, _P, _P, _P, _P, _P, _I, _P)),
     "rlc_epilogue": ("cbt_rlc_epilogue", (_P, _P, _P, _P, _I, _P)),
     "pt_add": ("cbt_pt_add", (_P, _P, _P, _I, _P)),
+    "bls_hard_pow": ("cbt_bls_hard_pow", (_P, _P, _I, _P, _P, _I, _P)),
+    "bls_miller_finalexp": ("cbt_bls_miller_finalexp",
+                            (_P, _P, _I, _P, _P, _I, _P)),
 }
 
 _LOCK = threading.Lock()

@@ -592,7 +592,7 @@ class PipelinedBlocksync:
                                              sspan)
                 tile.out = np.asarray(out, dtype=bool)
             settle_tile(tile.metas, tile.out, tile.pubs, tile.msgs,
-                        tile.sigs, self.r.cache)
+                        tile.sigs, self.r.cache, self.r.verifier.device)
             if tile.entries:
                 self.r.stats.tiles_flushed += 1
                 self.r.stats.sigs_verified += sum(

@@ -107,17 +107,28 @@ def results_hash(tx_results) -> bytes:
 def validator_updates_to_validators(updates: List[ValidatorUpdate]
                                     ) -> List[Validator]:
     """App-issued set changes → Validators. A bls12_381 admission is
-    gated in the JAX package on its proof of possession registering
-    through aggsig, which the port does not carry yet."""
+    gated on its proof of possession registering (idempotent, so
+    replay/handshake re-application is free): letting an unproven BLS
+    key into the set would poison every later aggregate over it with
+    rogue-key unsoundness. Deterministic — a bad PoP fails on every
+    node identically, so the block itself is rejected, not forked
+    over."""
     out = []
     for u in updates:
         if u.pub_key_type == "ed25519":
             out.append(Validator(Ed25519PubKey(u.pub_key_bytes), u.power))
             continue
         if u.pub_key_type in ("bls12_381", "bls12381"):
-            raise NotImplementedError(
-                "bls12_381 validator updates need aggsig, which is not "
-                "ported yet (ROADMAP.md Queue 1: aggsig)")
+            from ..aggsig.aggregate import register_pop
+            from ..crypto.keys import pubkey_from_type_bytes
+            if u.power > 0 and not register_pop(u.pub_key_bytes, u.pop):
+                raise BlockValidationError(
+                    "bls12_381 validator update with invalid proof "
+                    "of possession")
+            out.append(Validator(
+                pubkey_from_type_bytes("bls12_381", u.pub_key_bytes),
+                u.power))
+            continue
         raise BlockValidationError(
             f"unsupported validator key type {u.pub_key_type}")
     return out

@@ -108,11 +108,11 @@ class State:
     def from_genesis(cls, gen: GenesisDoc) -> "State":
         """reference state/state.go MakeGenesisState."""
         if gen.bls_pops:
-            # genesis BLS proofs of possession are verified and
-            # registered by aggsig in the JAX package
-            raise NotImplementedError(
-                "genesis BLS proofs of possession need aggsig, which is "
-                "not ported yet (ROADMAP.md Queue 1: aggsig)")
+            # verify-and-register the genesis proofs of possession in
+            # one batched multi-pairing (idempotent + process-cached,
+            # so every node/restart in a process pays it once)
+            from ..aggsig.aggregate import register_pops_batch
+            register_pops_batch(gen.bls_pops)
         vals = ValidatorSet(gen.validators)
         return cls(
             chain_id=gen.chain_id,

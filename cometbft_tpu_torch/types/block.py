@@ -229,11 +229,11 @@ class Commit:
     def decode(cls, buf: bytes) -> "Commit":
         f = proto.parse_fields(buf)
         if cls is Commit and 6 in f:
-            # aggregate seal present (agg_sig=6): the AggregatedCommit
-            # wire form, which the port does not carry yet
-            raise NotImplementedError(
-                "aggregated commits are not ported yet (ROADMAP.md "
-                "Queue 1: aggsig)")
+            # aggregate seal present (agg_sig=6): dispatch to the
+            # AggregatedCommit wire form so every existing decode path
+            # (blockstore, block parts, WAL) round-trips it
+            from .agg_commit import AggregatedCommit
+            return AggregatedCommit.decode(buf)
         bid = proto.field_bytes(f, 3, None)
         return cls(proto.to_int64(proto.field_int(f, 1, 0)),
                    proto.to_int64(proto.field_int(f, 2, 0)),

@@ -86,7 +86,15 @@ def _should_batch_verify(vals: ValidatorSet, commit: Commit) -> bool:
     prop = vals.get_proposer()
     if prop is None:
         return False
-    return (len(commit.signatures) >= BATCH_VERIFY_THRESHOLD
+    threshold = BATCH_VERIFY_THRESHOLD
+    if prop.pub_key.type_() == "bls12_381":
+        # BLS per-sig verification is pairing-bound (two Miller loops
+        # plus a final exponentiation EACH); the multi-pairing batch
+        # shares one final exponentiation across the whole set, so it
+        # pays for itself at the reference's own threshold of 2
+        # (types/validation.go:13), on the host
+        threshold = 2
+    return (len(commit.signatures) >= threshold
             and crypto_batch.supports_batch_verifier(prop.pub_key))
 
 
@@ -101,10 +109,20 @@ def _verify_commit_core(chain_id: str, vals: ValidatorSet, commit: Commit,
     because attribution is free with per-lane verdicts). `device` is
     where a batch of `BATCH_VERIFY_THRESHOLD` or more ed25519 signatures
     runs (default cuda, `device.resolve_device`), alone or as the
-    ed25519 bucket of a mixed-curve set's `MixedBatchVerifier`.
-
-    An aggregated (BLS) commit never reaches this function in the port:
-    `Commit.decode` raises on its wire form."""
+    ed25519 bucket of a mixed-curve set's `MixedBatchVerifier`, and where
+    an aggregated (BLS) commit's pairing equation settles."""
+    from .agg_commit import AggregatedCommit
+    if isinstance(commit, AggregatedCommit):
+        # the BLS aggregate seal: one multi-pairing check for the whole
+        # commit (aggsig/verify.py), same ignore/count semantics and
+        # exception vocabulary, whole-aggregate verdict SigCache-keyed
+        from ..aggsig import verify as aggsig_verify
+        aggsig_verify.verify_aggregated_commit(
+            chain_id, vals, commit, voting_power_needed,
+            ignore=ignore, count=count, count_all=count_all,
+            lookup_by_index=lookup_by_index, cache=shared_cache(),
+            device=device)
+        return
     use_batch = _should_batch_verify(vals, commit)
     bv = None
     if use_batch:

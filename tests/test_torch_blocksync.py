@@ -28,9 +28,11 @@ the host modules under it) held against the JAX package's, on the CPU.
   ed25519 bucket on the torch RLC path here, per signature on the JAX
   side); `verify_tile` on a tile mixing the main chain's commits with
   mixed-set commits gives the JAX package's per-commit verdicts (the
-  mixed commits decided at marshal, the JAX package's AggSeal "ok" and
-  "fail", the port's `DecidedSeal`).
-- Unported branches raise NotImplementedError; device="cuda" raises
+  mixed commits decided at marshal as `AggSeal` "ok" and "fail" on both
+  sides).
+- Unported branches (mesh, seal sync) raise NotImplementedError, and the
+  aggsig branches answer: BLS genesis keys with their PoPs, and
+  `Commit.decode` of the aggregated wire form; device="cuda" raises
   without a card.
 """
 
@@ -352,18 +354,25 @@ def test_unported_branches_raise(chains, monkeypatch):
     with pytest.raises(NotImplementedError):
         pbs.verify_lanes([b"\x00" * 32] * 64, [b""] * 64, [b"\x00" * 64] * 64,
                          BATCH, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pcg.generate_chain(n_blocks=2, n_validators=2, aggregate=True,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="aggsig"):
-        pcg.make_genesis(2, key_type="bls12_381")
-    # the generator signs with ed25519 keys only (the JAX package adds
-    # BLS, and makes ed25519 keys for any other type it is given)
+    # seal sync over a chain needs sealsync/, not ported yet
+    with pytest.raises(NotImplementedError, match="sealsync"):
+        pcg.ChainSealSource(pchain).fetch_seals(1, 1)
+    # BLS genesis keys come with their proofs of possession, as in the
+    # JAX package (the same seeded keys and PoP bytes)
+    gen, keys = pcg.make_genesis(2, key_type="bls12_381")
+    jgen, _ = jcg.make_genesis(2, key_type="bls12_381")
+    assert gen.bls_pops == jgen.bls_pops and len(gen.bls_pops) == 2
+    assert {k.type_() for k in keys.values()} == {"bls12_381"}
+    # the generator signs with ed25519 or BLS keys only (the JAX package
+    # makes ed25519 keys for any other type it is given)
     with pytest.raises(ValueError):
         pcg.make_genesis(2, key_type="sr25519")
+    # the aggregated wire form (field 6) decodes as an AggregatedCommit
     agg = pchain.seen_commits[0].encode() + bytes([0x32, 1, 0])  # field 6
-    with pytest.raises(NotImplementedError):
-        type(pchain.seen_commits[0]).decode(agg)
+    got = type(pchain.seen_commits[0]).decode(agg)
+    assert type(got).__name__ == "AggregatedCommit"
+    assert got.agg_sig == b"\x00"
+    assert got.encode() == jcg.Commit.decode(agg).encode()
 
 
 @pytest.mark.parametrize("value", ["1", "true"])

@@ -14,9 +14,9 @@ none: equal bytes, equal verdicts, equal exception classes.
   (tampered, high-s, malformed) equal the JAX package's; so do addresses
   of keys read by the factories, and secret 1's address is bitcoin's.
 - The key factories by type string, `create_batch_verifier` and
-  `supports_batch_verifier` answer as the JAX package does, except where
-  the port lacks the type (bls12_381 raises NotImplementedError) or adds
-  a private-key type (sr25519, secp256k1).
+  `supports_batch_verifier` answer as the JAX package does (bls12_381
+  included), except where the port adds a private-key type
+  (sr25519, secp256k1).
 - `MixedBatchVerifier` gives the JAX package's verdicts, lane by lane in
   the original order, on the same 76 keys and messages, clean and with
   one tampered lane of each curve; its 70-lane ed25519 bucket runs the
@@ -233,16 +233,21 @@ def test_key_factories_dispatch_on_type_not_length():
             mod.pubkey_from_type_bytes("rsa", raw)
         with pytest.raises(ValueError):
             mod.pubkey_from_type_bytes("secp256k1", raw)   # not 33 bytes
-    with pytest.raises(NotImplementedError, match="aggsig"):
-        pkeys.pubkey_from_type_bytes("bls12_381", b"\x00" * 48)
-    with pytest.raises(NotImplementedError, match="aggsig"):
-        pkeys.privkey_from_type_bytes("bls12_381", b"\x00" * 32)
+    for mod in (pkeys, jkeys):
+        # not a compressed G1 point; a zero scalar is out of range
+        with pytest.raises(ValueError):
+            mod.pubkey_from_type_bytes("bls12_381", b"\x00" * 48)
+        with pytest.raises(ValueError):
+            mod.privkey_from_type_bytes("bls12_381", b"\x00" * 32)
+    bls = pkeys.privkey_from_type_bytes("bls12_381", b"\x11" * 32)
+    assert bls.pub_key().bytes_() == jkeys.privkey_from_type_bytes(
+        "bls12_381", b"\x11" * 32).pub_key().bytes_()
     with pytest.raises(ValueError):
         pkeys.privkey_from_type_bytes("sr25519", b"\x00" * 32)
 
 
 class _BlsStub:
-    """A key of the type the port has no verifier for."""
+    """A BLS key: the batch verifier needs only its type."""
 
     def type_(self):
         return "bls12_381"
@@ -253,10 +258,12 @@ def test_create_batch_verifier_matches_jax(key_type):
     if key_type == "bls12_381":
         assert pbatch.supports_batch_verifier(_BlsStub()) == \
             jbatch.supports_batch_verifier(_BlsStub()) is True
-        # never (None, False): that would send BLS lanes down the
-        # per-signature path
-        with pytest.raises(NotImplementedError, match="aggsig"):
-            pbatch.create_batch_verifier(_BlsStub(), device="cpu")
+        # the host RLC multi-pairing, never (None, False): that would
+        # send BLS lanes down the per-signature path
+        bv, ok = pbatch.create_batch_verifier(_BlsStub(), device="cpu")
+        jbv, jok = jbatch.create_batch_verifier(_BlsStub())
+        assert ok == jok is True
+        assert type(bv).__name__ == type(jbv).__name__ == "BlsBatchVerifier"
         return
     pub = tm.make_key("port", key_type, KEYS[key_type]).pub_key()
     jpub = jkeys.pubkey_from_type_bytes(key_type, pub.bytes_())

@@ -239,6 +239,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "    importlib.import_module(name)\n"
         "assert 'cometbft_tpu_torch.light.client' in names, names\n"
         "assert 'cometbft_tpu_torch.crypto.sr25519' in names, names\n"
+        "assert 'cometbft_tpu_torch.aggsig.verify' in names, names\n"
+        "assert 'cometbft_tpu_torch.ops.bls12' in names, names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cometbft_tpu' or m.startswith('cometbft_tpu.')]\n"
         "assert not bad, bad\n")

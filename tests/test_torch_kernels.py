@@ -9,8 +9,10 @@ at TILE=8, started together by a module fixture so they run while the
 port side computes. Comparison is exact: validity flags, points mod p, window sums
 and sums of points as group elements, verdicts.
 
-`test_kernels_match_plain_on_card` needs a CUDA card and skips without
-one; on the card it holds each CUDA kernel against its plain version.
+`test_kernels_match_plain_on_card` and `test_bls_kernels_match_plain_on_card`
+need a CUDA card and skip without one; on the card they hold each CUDA
+kernel (the four point kernels, and the two BLS kernels of ops/bls12.py)
+against its plain version.
 """
 
 import numpy as np
@@ -363,3 +365,42 @@ def test_kernels_match_plain_on_card():
         assert ted.pt_eq(cv.unpack_point(got.long()),
                          cv.unpack_point(cv.pt_add_tiled_plain(p, q)
                                          .long())).all()
+
+
+@pytest.mark.cuda
+def test_bls_kernels_match_plain_on_card():
+    """`bls_miller_finalexp` and `bls_hard_pow` (ops/bls12.py) against
+    their plain versions on the card at buckets 4 and 16: the final Fq12
+    limbs and the verdicts exactly, the verdicts also against the host
+    oracle (canaries, a clean and a tampered 2-pair item, a 1-pair item,
+    pad lanes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.ops import bls12 as pb
+    dev = torch.device("cuda")
+    key = bls.Bls12381PrivKey.generate(seed=b"kernels-bls")
+    msg = b"a canonical precommit sign-bytes stand-in, over 32 bytes"
+    h = bls.hash_to_g2_cached(bls._fixed_msg(msg))
+    pk, q = key.pub_key().point, bls.G2_GEN
+    items = [[(bls.G1_NEG, q), (bls.G1_GEN, q)],
+             [(bls.G1_NEG, bls.g2_decompress(key.sign(msg))), (pk, h)],
+             [(bls.G1_NEG, bls.g2_decompress(key.sign(msg + b"!"))), (pk, h)],
+             [(bls.G1_GEN, q), (bls.G1_GEN, q)], [(bls.G1_GEN, q)]]
+    want = [True, True, False, False, False]
+    bits = torch.tensor(pb.HARD_BITS, dtype=torch.int32, device=dev)
+    for bucket in (4, 16):
+        batch = items[:bucket - 1]
+        lanes = want[:bucket - 1] + [True] * (bucket - len(batch))
+        lines = torch.from_numpy(pb._pack_miller_lines(batch, bucket)).to(dev)
+        out, ok = pb.bls_miller_finalexp(lines, bits)
+        pout, pok = pb.bls_miller_finalexp_plain(lines, bits)
+        assert torch.equal(out, pout) and torch.equal(ok, pok)
+        assert ok.tolist() == lanes
+        easy = [bls.final_exp_easy(bls.miller_product(it)) for it in batch]
+        arr = torch.from_numpy(pb._pack(
+            easy + [bls.F12_ONE] * (bucket - len(batch)))).to(dev)
+        out, ok = pb.bls_hard_pow(arr, bits)
+        pout, pok = pb.bls_hard_pow_plain(arr, bits)
+        assert torch.equal(out, pout) and torch.equal(ok, pok)
+        assert ok.tolist() == lanes
