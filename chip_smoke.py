@@ -10,9 +10,9 @@ Phases; any failure exits non-zero:
 1. Build the six CUDA kernels from cometbft_tpu_torch/csrc/ (one nvcc
    per source, all started together), and beside them the one-thread
    yardstick kernels of ONE_THREAD_CU (the parent's decompression and
-   addition, from the same fe25519.cuh); print the build seconds, the
-   registers and spills ptxas reports, and the card's name and power
-   limit.
+   addition, from the same fe25519.cuh) and the BLS kernels' previous
+   design, BLS_PREV_CU; print the build seconds, the registers and spills
+   ptxas reports, and the card's name and power limit.
 2. Generate the chain most later phases use, from --seed: 48 blocks of
    a 200-validator set, 2 txs a block, through the real executor on the
    card (`engine/chain_gen.generate_chain`, as `bench.py:154` sizes
@@ -48,13 +48,16 @@ Phases; any failure exits non-zero:
    part of the RLC verify, and (under torch.profiler) the kernel
    launches and device-busy time of the RLC verify and of the per-lane
    verify. Then the two BLS kernels (ops/bls12.py) against their plain
-   versions at buckets 4, 16 and 64, exactly (final Fq12 limbs and
-   verdicts): `bls_miller_finalexp` on line coefficients of the canary
-   items, clean 2-pair commit items, tampered aggregates, a 1-pair item
-   and a pad lane, `bls_hard_pow` on the same items' Miller products
-   after the easy part, and once at a 40-bit exponent; the verdicts
+   versions and their previous design at buckets 4, 16 and 64, exactly
+   (final Fq12 limbs and verdicts): `bls_miller_finalexp` on line
+   coefficients of the canary items, clean 2-pair commit items, tampered
+   aggregates, a 1-pair item, an item with no pairs (identity lines), a
+   lane of zero lines (f = 0) and a pad lane (at B = 4 the last four),
+   `bls_hard_pow` on the same lanes' Miller products after the easy part
+   (0 for the zero lane), and once at a 40-bit exponent; the verdicts
    against the host oracle; each kernel timed per bucket (torch.profiler
-   device time, CUDA events around a call, the plain call).
+   device time in turns with the previous design, CUDA events around a
+   call, the plain call), with the Fq products a lane runs.
 4. The paths, each with the launch counters zeroed just before it and
    read just after:
    - the BatchVerifier seam (`create_batch_verifier` ->
@@ -139,7 +142,8 @@ Phases; any failure exits non-zero:
      at 8192 lanes.
 5. Print the {"kernels": [...]} line (launches from the paths, device
    and call times, bounds, and for the two redesigned per-lane kernels
-   the one-thread parent's device time from the same rounds;
+   the one-thread parent's device time from the same rounds, and for the
+   BLS kernels the previous design's;
    `rlc_window_sums` counts two launches a call, and the launches of the
    pipelined syncs, of the device server's paths, of the light client
    and of the mixed set; the BLS kernels' rows with the launches of
@@ -359,6 +363,571 @@ class OneThread:
         out = torch.empty_like(p)
         self._call(torch, "pt_add_tiled", p, q, out, p.shape[-1])
         return out
+
+
+# The BLS kernels' previous design (one block of 64 threads a lane, an Fq2
+# product of 3 serial 64-bit-accumulator CIOS products a thread, every
+# squaring a general product, the inversion on one thread): the two kernels
+# and fq381.cuh's functions and block section as they stood before the
+# redesign, comments left out and the kernels renamed. Built here and timed
+# in turns with the kernels as the parent's yardstick; the port never calls
+# them.
+BLS_PREV_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#if defined(__CUDACC__)
+#define CBT_FN __host__ __device__ __forceinline__
+#define CBT_CALL __host__ __device__ __noinline__
+#else
+#define CBT_FN static inline
+#define CBT_CALL static
+#endif
+#define FQ_WORDS 12
+#define FQ_N0 0xfffcfffdu
+#define FQ_BITS 381
+struct fq {
+  uint32_t w[FQ_WORDS];
+};
+struct fq2 {
+  fq c0, c1;
+};
+CBT_FN uint32_t fq_p_word(int i) {
+  const uint32_t p[FQ_WORDS] = {
+      0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
+      0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
+      0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+  return p[i];
+}
+CBT_FN uint32_t fq_pm2_word(int i) {
+  return i == 0 ? 0xffffaaa9u : fq_p_word(i);
+}
+CBT_FN fq fq_zero() {
+  fq r;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) r.w[k] = 0;
+  return r;
+}
+CBT_FN fq fq_one() {
+  fq r = {{0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
+           0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
+           0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u}};
+  return r;
+}
+CBT_FN fq fq_gamma2(int i) {
+  const uint32_t g[6][FQ_WORDS] = {
+      {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau,
+       0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u,
+       0xfa80e493u, 0x15f65ec3u},
+      {0x798dba3au, 0xecfb361bu, 0x91865a2cu, 0xc100ddb8u, 0x232bda8eu,
+       0x0ec08ff1u, 0xf1ca4721u, 0xd5c13cc6u, 0xbf7b5c04u, 0x47222a47u,
+       0xe51c5f59u, 0x0110f184u},
+      {0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu, 0xc61577f7u,
+       0x16a8ca3au, 0x74fd029bu, 0xc26a2ff8u, 0x60701c6eu, 0x3636b766u,
+       0x241b6160u, 0x051ba4abu},
+      {0xfffcaaaeu, 0x43f5ffffu, 0xed47fffdu, 0x32b7fff2u, 0xa2e99d69u,
+       0x07e83a49u, 0x8332bb7au, 0xeca8f331u, 0xa0f4c069u, 0xef148d1eu,
+       0x3eff0206u, 0x040ab326u},
+      {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u,
+       0x587042afu, 0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu,
+       0x54638741u, 0x18f02065u},
+      {0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u, 0x309b7e2cu,
+       0x50880866u, 0x7e881024u, 0xa20d1b8cu, 0xe2db9068u, 0x14e4f04fu,
+       0x1564853au, 0x14e56d3fu}};
+  fq r;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) r.w[k] = g[i][k];
+  return r;
+}
+CBT_FN fq fq_cond_sub_p(const fq& t) {
+  fq d;
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) {
+    uint64_t v = (uint64_t)t.w[k] - fq_p_word(k) - borrow;
+    d.w[k] = (uint32_t)v;
+    borrow = (uint32_t)(v >> 63);
+  }
+  return borrow ? t : d;
+}
+CBT_FN fq fq_add(const fq& a, const fq& b) {
+  fq s;
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) {
+    c += (uint64_t)a.w[k] + b.w[k];
+    s.w[k] = (uint32_t)c;
+    c >>= 32;
+  }
+  return fq_cond_sub_p(s);
+}
+CBT_FN fq fq_sub(const fq& a, const fq& b) {
+  fq d;
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) {
+    uint64_t v = (uint64_t)a.w[k] - b.w[k] - borrow;
+    d.w[k] = (uint32_t)v;
+    borrow = (uint32_t)(v >> 63);
+  }
+  if (borrow) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int k = 0; k < FQ_WORDS; k++) {
+      c += (uint64_t)d.w[k] + fq_p_word(k);
+      d.w[k] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+  return d;
+}
+CBT_FN fq fq_neg(const fq& a) { return fq_sub(fq_zero(), a); }
+CBT_FN fq fq_mul(const fq& a, const fq& b) {
+  uint32_t t[FQ_WORDS + 2];
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS + 2; k++) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < FQ_WORDS; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < FQ_WORDS; j++) {
+      c += (uint64_t)a.w[j] * b.w[i] + t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[FQ_WORDS];
+    t[FQ_WORDS] = (uint32_t)c;
+    t[FQ_WORDS + 1] = (uint32_t)(c >> 32);
+    const uint32_t m = t[0] * FQ_N0;
+    c = ((uint64_t)m * fq_p_word(0) + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < FQ_WORDS; j++) {
+      c += (uint64_t)m * fq_p_word(j) + t[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[FQ_WORDS];
+    t[FQ_WORDS - 1] = (uint32_t)c;
+    t[FQ_WORDS] = t[FQ_WORDS + 1] + (uint32_t)(c >> 32);
+  }
+  fq r;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) r.w[k] = t[k];
+  return fq_cond_sub_p(r);
+}
+CBT_FN bool fq_eq(const fq& a, const fq& b) {
+  uint32_t d = 0;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) d |= a.w[k] ^ b.w[k];
+  return d == 0;
+}
+CBT_CALL fq fq_mul_call(const fq& a, const fq& b) { return fq_mul(a, b); }
+CBT_CALL fq fq_inv(const fq& a) {
+  fq acc = a;
+  for (int i = FQ_BITS - 2; i >= 0; i--) {
+    acc = fq_mul_call(acc, acc);
+    if ((fq_pm2_word(i >> 5) >> (i & 31)) & 1u) acc = fq_mul_call(acc, a);
+  }
+  return acc;
+}
+CBT_FN fq fq_load16(const int32_t* base, long stride) {
+  fq r;
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++)
+    r.w[k] = ((uint32_t)base[(2 * k) * stride] & 0xffffu) |
+             ((uint32_t)base[(2 * k + 1) * stride] << 16);
+  return r;
+}
+CBT_FN void fq_store16(int32_t* base, long stride, const fq& a) {
+#pragma unroll
+  for (int k = 0; k < FQ_WORDS; k++) {
+    base[(2 * k) * stride] = (int32_t)(a.w[k] & 0xffffu);
+    base[(2 * k + 1) * stride] = (int32_t)(a.w[k] >> 16);
+  }
+}
+CBT_FN fq2 fq2_zero() {
+  fq2 r = {fq_zero(), fq_zero()};
+  return r;
+}
+CBT_FN fq2 fq2_add(const fq2& a, const fq2& b) {
+  fq2 r = {fq_add(a.c0, b.c0), fq_add(a.c1, b.c1)};
+  return r;
+}
+CBT_FN fq2 fq2_sub(const fq2& a, const fq2& b) {
+  fq2 r = {fq_sub(a.c0, b.c0), fq_sub(a.c1, b.c1)};
+  return r;
+}
+CBT_FN fq2 fq2_neg(const fq2& a) {
+  fq2 r = {fq_neg(a.c0), fq_neg(a.c1)};
+  return r;
+}
+CBT_FN fq2 fq2_mul_xi(const fq2& a) {
+  fq2 r = {fq_sub(a.c0, a.c1), fq_add(a.c0, a.c1)};
+  return r;
+}
+CBT_FN fq2 fq2_mul(const fq2& a, const fq2& b) {
+  const fq v0 = fq_mul(a.c0, b.c0);
+  const fq v1 = fq_mul(a.c1, b.c1);
+  const fq s = fq_mul(fq_add(a.c0, a.c1), fq_add(b.c0, b.c1));
+  fq2 r = {fq_sub(v0, v1), fq_sub(fq_sub(s, v0), v1)};
+  return r;
+}
+CBT_CALL fq2 fq2_mul_call(const fq2& a, const fq2& b) {
+  return fq2_mul(a, b);
+}
+CBT_CALL fq2 fq2_inv(const fq2& a) {
+  const fq ni = fq_inv(fq_add(fq_mul_call(a.c0, a.c0),
+                              fq_mul_call(a.c1, a.c1)));
+  fq2 r = {fq_mul_call(a.c0, ni), fq_neg(fq_mul_call(a.c1, ni))};
+  return r;
+}
+CBT_FN bool fq2_is(const fq2& a, const fq& c0) {
+  return fq_eq(a.c0, c0) && fq_eq(a.c1, fq_zero());
+}
+struct fq6 {
+  fq2 c[3];
+};
+CBT_CALL fq6 fq6_mul(const fq6& a, const fq6& b) {
+  fq2 t[5];
+  for (int k = 0; k < 5; k++) t[k] = fq2_zero();
+  for (int i = 0; i < 3; i++)
+    for (int j = 0; j < 3; j++) t[i + j] = fq2_add(t[i + j], fq2_mul_call(a.c[i], b.c[j]));
+  fq6 r;
+  r.c[0] = fq2_add(t[0], fq2_mul_xi(t[3]));
+  r.c[1] = fq2_add(t[1], fq2_mul_xi(t[4]));
+  r.c[2] = t[2];
+  return r;
+}
+CBT_CALL fq6 fq6_inv(const fq6& a) {
+  const fq2 big_a = fq2_sub(fq2_mul_call(a.c[0], a.c[0]),
+                            fq2_mul_xi(fq2_mul_call(a.c[1], a.c[2])));
+  const fq2 big_b = fq2_sub(fq2_mul_xi(fq2_mul_call(a.c[2], a.c[2])),
+                            fq2_mul_call(a.c[0], a.c[1]));
+  const fq2 big_c = fq2_sub(fq2_mul_call(a.c[1], a.c[1]), fq2_mul_call(a.c[0], a.c[2]));
+  const fq2 f = fq2_add(fq2_mul_call(a.c[0], big_a),
+                        fq2_mul_xi(fq2_add(fq2_mul_call(a.c[1], big_c),
+                                           fq2_mul_call(a.c[2], big_b))));
+  const fq2 fi = fq2_inv(f);
+  fq6 r;
+  r.c[0] = fq2_mul_call(big_a, fi);
+  r.c[1] = fq2_mul_call(big_b, fi);
+  r.c[2] = fq2_mul_call(big_c, fi);
+  return r;
+}
+CBT_CALL void f12_inv_serial(const fq2* a, fq2* out) {
+  fq6 big_a, big_b;
+  for (int k = 0; k < 3; k++) {
+    big_a.c[k] = a[2 * k];
+    big_b.c[k] = a[2 * k + 1];
+  }
+  const fq6 aa = fq6_mul(big_a, big_a);
+  const fq6 bb = fq6_mul(big_b, big_b);
+  fq6 den;
+  den.c[0] = fq2_sub(aa.c[0], fq2_mul_xi(bb.c[2]));
+  den.c[1] = fq2_sub(aa.c[1], bb.c[0]);
+  den.c[2] = fq2_sub(aa.c[2], bb.c[1]);
+  const fq6 di = fq6_inv(den);
+  fq6 nb;
+  for (int k = 0; k < 3; k++) nb.c[k] = fq2_neg(big_b.c[k]);
+  const fq6 ia = fq6_mul(big_a, di);
+  const fq6 ib = fq6_mul(nb, di);
+  for (int k = 0; k < 3; k++) {
+    out[2 * k] = ia.c[k];
+    out[2 * k + 1] = ib.c[k];
+  }
+}
+#if defined(__CUDACC__) || defined(CBT_BLOCK_SHIM)
+#define BLS_THREADS 64
+__device__ __forceinline__ int bls_deg(int ny, int jj) {
+  return ny == 6 ? jj : (jj == 0 ? 0 : (jj == 1 ? 3 : 5));
+}
+__device__ __noinline__ void f12_mul_block(fq2* out, const fq2* x,
+                                           const fq2* y, int ny, fq2* prod) {
+  const int t = threadIdx.x;
+  if (t < 6 * ny) prod[t] = fq2_mul(x[t / ny], y[t % ny]);
+  __syncthreads();
+  if (t < 12) {
+    const int k = t >> 1;
+    fq lo = fq_zero(), hi0 = fq_zero(), hi1 = fq_zero();
+    for (int jj = 0; jj < ny; jj++) {
+      const int d = bls_deg(ny, jj);
+      const int il = k - d, ih = k + 6 - d;
+      if (il >= 0 && il < 6) {
+        const fq2& p = prod[il * ny + jj];
+        lo = fq_add(lo, (t & 1) ? p.c1 : p.c0);
+      }
+      if (ih >= 0 && ih < 6) {
+        const fq2& p = prod[ih * ny + jj];
+        hi0 = fq_add(hi0, p.c0);
+        hi1 = fq_add(hi1, p.c1);
+      }
+    }
+    const fq v = fq_add(lo, (t & 1) ? fq_add(hi0, hi1) : fq_sub(hi0, hi1));
+    if (t & 1) out[k].c1 = v;
+    else out[k].c0 = v;
+  }
+  __syncthreads();
+}
+__device__ void f12_pow_block(fq2* acc, const fq2* m,
+                              const int32_t* __restrict__ bits, int nbits,
+                              fq2* prod) {
+  for (int s = 1; s < nbits; s++) {
+    f12_mul_block(acc, acc, acc, 6, prod);
+    if (bits[s]) f12_mul_block(acc, acc, m, 6, prod);
+  }
+}
+__device__ __forceinline__ long bls_elem(int i, int c, int lane, int b) {
+  return (long)(i * 2 + c) * 24 * b + lane;
+}
+__device__ __forceinline__ void f12_load_block(fq2* dst,
+                                               const int32_t* __restrict__ arr,
+                                               int lane, int b) {
+  const int t = threadIdx.x;
+  if (t < 12) {
+    const fq v = fq_load16(arr + bls_elem(t >> 1, t & 1, lane, b), b);
+    if (t & 1) dst[t >> 1].c1 = v;
+    else dst[t >> 1].c0 = v;
+  }
+}
+__device__ __forceinline__ void f12_store_block(int32_t* __restrict__ out,
+                                                uint8_t* __restrict__ ok,
+                                                const fq2* x, int lane, int b) {
+  const int t = threadIdx.x;
+  if (t < 12)
+    fq_store16(out + bls_elem(t >> 1, t & 1, lane, b), b,
+               (t & 1) ? x[t >> 1].c1 : x[t >> 1].c0);
+  if (t == 0) {
+    bool one = fq2_is(x[0], fq_one());
+    for (int i = 1; i < 6; i++) one = one && fq2_is(x[i], fq_zero());
+    ok[lane] = one ? 1 : 0;
+  }
+}
+#endif
+__global__ void __launch_bounds__(BLS_THREADS)
+bls_hard_pow_prev_kernel(const int32_t* __restrict__ arr,
+                    const int32_t* __restrict__ bits, int nbits,
+                    int32_t* __restrict__ out, uint8_t* __restrict__ ok,
+                    int b) {
+  __shared__ fq2 m[6], acc[6], prod[36];
+  const int lane = blockIdx.x;
+  f12_load_block(m, arr, lane, b);
+  f12_load_block(acc, arr, lane, b);
+  __syncthreads();
+  f12_pow_block(acc, m, bits, nbits, prod);
+  f12_store_block(out, ok, acc, lane, b);
+}
+extern "C" int cbt_bls_hard_pow_prev(const int32_t* arr, const int32_t* bits,
+                                int nbits, int32_t* out, uint8_t* ok, int b,
+                                void* stream) {
+  if (b > 0)
+    bls_hard_pow_prev_kernel<<<b, BLS_THREADS, 0, (cudaStream_t)stream>>>(
+        arr, bits, nbits, out, ok, b);
+  return (int)cudaGetLastError();
+}
+#define MILLER_STEPS 63
+#define MILLER_PAIRS 2
+__global__ void __launch_bounds__(BLS_THREADS)
+bls_miller_finalexp_prev_kernel(const int32_t* __restrict__ lines,
+                           const int32_t* __restrict__ bits, int nbits,
+                           int32_t* __restrict__ out,
+                           uint8_t* __restrict__ ok, int b) {
+  __shared__ fq2 f[6], m[6], inv[6], line[3], prod[36];
+  const int lane = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t < 6) {
+    f[t].c0 = t == 0 ? fq_one() : fq_zero();
+    f[t].c1 = fq_zero();
+  }
+  __syncthreads();
+  for (int s = 0; s < MILLER_STEPS; s++) {
+    f12_mul_block(f, f, f, 6, prod);
+    for (int pi = 0; pi < MILLER_PAIRS; pi++) {
+      for (int ph = 0; ph < 2; ph++) {
+        if (t < 6) {
+          const long row =
+              ((((long)(s * MILLER_PAIRS + pi) * 2 + ph) * 3 + (t >> 1)) * 2 +
+               (t & 1)) * 24;
+          const fq v = fq_load16(lines + row * b + lane, b);
+          if (t & 1) line[t >> 1].c1 = v;
+          else line[t >> 1].c0 = v;
+        }
+        __syncthreads();
+        f12_mul_block(f, f, line, 3, prod);
+      }
+    }
+  }
+  if (t < 6 && (t & 1)) f[t] = fq2_neg(f[t]);
+  __syncthreads();
+  if (t == 0) f12_inv_serial(f, inv);
+  if (t < 6) m[t] = (t & 1) ? fq2_neg(f[t]) : f[t];
+  __syncthreads();
+  f12_mul_block(m, m, inv, 6, prod);
+  if (t < 12) {
+    const fq g = fq_gamma2(t >> 1);
+    if (t & 1) f[t >> 1].c1 = fq_mul(m[t >> 1].c1, g);
+    else f[t >> 1].c0 = fq_mul(m[t >> 1].c0, g);
+  }
+  __syncthreads();
+  f12_mul_block(m, f, m, 6, prod);
+  if (t < 6) f[t] = m[t];
+  __syncthreads();
+  f12_pow_block(f, m, bits, nbits, prod);
+  f12_store_block(out, ok, f, lane, b);
+}
+extern "C" int cbt_bls_miller_finalexp_prev(const int32_t* lines,
+                                       const int32_t* bits, int nbits,
+                                       int32_t* out, uint8_t* ok, int b,
+                                       void* stream) {
+  if (b > 0)
+    bls_miller_finalexp_prev_kernel<<<b, BLS_THREADS, 0, (cudaStream_t)stream>>>(
+        lines, bits, nbits, out, ok, b);
+  return (int)cudaGetLastError();
+}
+"""
+BLS_PREV_FNS = {"bls_hard_pow": "bls_hard_pow_prev_kernel",
+               "bls_miller_finalexp": "bls_miller_finalexp_prev_kernel"}
+# Where one lane's time goes: clock64 cycles of the BLS kernels' pieces on
+# one block, from fq381.cuh as the kernels build it: a one-thread Fq
+# product and squaring (MICRO_REPS chained), and an Fq12 product, general
+# squaring, cyclotomic squaring, product phase, fold phase and barrier on
+# a block of BLS_THREADS (MICRO_REPS each).
+MICRO_REPS = 256
+BLS_MICRO_CU = r"""
+#include <cuda_runtime.h>
+#include "fq381.cuh"
+
+__global__ void bls_micro_fq(const fq* in, fq* out, long long* cyc, int n) {
+  fq x = in[0], y = in[1];
+  const long long t0 = clock64();
+  for (int i = 0; i < n; i++) x = fq_mul(x, y);
+  const long long t1 = clock64();
+  for (int i = 0; i < n; i++) y = fq_sq(y);
+  cyc[0] = t1 - t0;
+  cyc[1] = clock64() - t1;
+  out[0] = x;
+  out[1] = y;
+}
+
+__global__ void __launch_bounds__(BLS_THREADS)
+bls_micro_f12(const fq2* in, fq2* out, long long* cyc, int n) {
+  __shared__ bls_smem s;
+  const int t = threadIdx.x;
+  if (t < 6) {
+    s.f[t] = in[t];
+    s.m[t] = in[6 + t];
+  }
+  __syncthreads();
+  for (int w = 0; w < 6; w++) {
+    const long long t0 = clock64();
+    for (int i = 0; i < n; i++) {
+      if (w == 0) f12_mul_block(&s, s.f, s.f, s.m, false);
+      else if (w == 1) f12_sq_block(&s, s.f, s.f);
+      else if (w == 2) f12_cyc_block(&s, s.f, s.f);
+      else if (w == 3) BLS_STEP(f12_mul_pd(t, s.f, s.m, false, &s));
+      else if (w == 4) BLS_STEP(f12_mul_fd(t, s.u, &s));
+      else __syncthreads();
+    }
+    if (t == 0) cyc[w] = clock64() - t0;
+  }
+  if (t < 6) out[t] = s.f[t];
+}
+
+extern "C" int cbt_bls_micro(const void* fq_in, void* fq_out,
+                             const void* f12_in, void* f12_out,
+                             long long* cyc, int n, void* s) {
+  bls_micro_fq<<<1, 1, 0, (cudaStream_t)s>>>((const fq*)fq_in, (fq*)fq_out,
+                                             cyc, n);
+  bls_micro_f12<<<1, BLS_THREADS, 0, (cudaStream_t)s>>>(
+      (const fq2*)f12_in, (fq2*)f12_out, cyc + 2, n);
+  return (int)cudaGetLastError();
+}
+"""
+MICRO_KEYS = ("fq_mul", "fq_sq", "f12_mul", "f12_sq", "f12_cyc",
+              "product_phase", "fold_phase", "barrier")
+
+
+class BlsYard:
+    """The yardstick kernels of BLS_PREV_CU and the cycle counts of
+    BLS_MICRO_CU: the constructor starts nvcc for both (beside the port's
+    own builds), `load` waits and binds them."""
+
+    def __init__(self, build):
+        self.dir = build.BUILD_DIR
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.procs = {}
+        for name, text, inc in (("bls_prev", BLS_PREV_CU, ()),
+                                ("bls_micro", BLS_MICRO_CU,
+                                 ("-I", str(build.CSRC)))):
+            src = self.dir / f"{name}.cu"
+            src.write_text(text)
+            self.procs[name] = subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", *inc,
+                 "-o", str(self.dir / f"{name}.so"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def kill(self) -> None:
+        for proc in self.procs.values():
+            proc.kill()
+
+    def load(self) -> str:
+        texts = []
+        for name, proc in self.procs.items():
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{text}")
+            texts.append(text)
+        self._libs = {name: ctypes.CDLL(str(self.dir / f"{name}.so"))
+                      for name in self.procs}
+        self._fns = {}
+        for key in BLS_PREV_FNS:
+            fn = getattr(self._libs["bls_prev"], f"cbt_{key}_prev")
+            fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p)
+            fn.restype = ctypes.c_int
+            self._fns[key] = fn
+        fn = self._libs["bls_micro"].cbt_bls_micro
+        fn.argtypes = (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_void_p)
+        fn.restype = ctypes.c_int
+        self._fns["micro"] = fn
+        return "\n".join(texts)
+
+    def call(self, torch, key, x, bits):
+        """(6, 2, 24, B) elements or (63, 2, 2, 3, 2, 24, B) lines ->
+        (final Fq12 limbs (6, 2, 24, B), verdicts (B,))."""
+        b = x.shape[-1]
+        out = torch.empty((6, 2, 24, b), dtype=torch.int32, device=x.device)
+        ok = torch.empty((b,), dtype=torch.bool, device=x.device)
+        rc = self._fns[key](x.data_ptr(), bits.data_ptr(), bits.shape[0],
+                            out.data_ptr(), ok.data_ptr(), b,
+                            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"BLS yardstick {key} launch failed: {rc}")
+        return out, ok
+
+    def cycles(self, torch, seed: int) -> dict:
+        """MICRO_KEYS -> clock64 cycles per operation (the second of two
+        runs), on canonical Montgomery words from `seed`."""
+        from cometbft_tpu_torch.ops import bls12 as pb
+        rng = np.random.default_rng(seed)
+
+        def words(n):
+            vals = [int.from_bytes(rng.bytes(48), "little") % pb.P_INT
+                    for _ in range(n)]
+            return torch.tensor(
+                [[(v >> (32 * k)) & 0xffffffff for k in range(12)]
+                 for v in vals], dtype=torch.int64).to(torch.int32).cuda()
+        fq_in, f12_in = words(2), words(24)
+        fq_out, f12_out = torch.empty_like(fq_in), torch.empty_like(f12_in[:12])
+        cyc = torch.zeros(8, dtype=torch.int64, device="cuda")
+        for _ in range(2):
+            rc = self._fns["micro"](fq_in.data_ptr(), fq_out.data_ptr(),
+                                    f12_in.data_ptr(), f12_out.data_ptr(),
+                                    cyc.data_ptr(), MICRO_REPS,
+                                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"BLS micro-benchmark launch failed: {rc}")
+            torch.cuda.synchronize()
+        return {k: v / MICRO_REPS for k, v in zip(MICRO_KEYS, cyc.tolist())}
 
 
 def _median_ms(torch, fn, reps: int) -> float:
@@ -1840,10 +2409,57 @@ def bls_items(bls):
     return items, want
 
 
-def _bls_lanes(n_items: int, bucket: int) -> list:
-    """Item index per lane of a bucket: the items in turn, and the last
-    lane a pad lane (index n_items)."""
-    return [i % n_items for i in range(bucket - 1)] + [n_items]
+# lane kinds beside the items: an item with no pairs (all identity lines),
+# a lane whose lines are all zero (f = 0: final value 0, verdict False),
+# and a pad lane (identity lines past the items)
+BLS_IDENT, BLS_ZERO, BLS_PAD = "identity", "zero", "pad"
+
+
+def _bls_lanes(items: list, bucket: int) -> list:
+    """Item index (or lane kind) per lane of a bucket: at B = 4 the 1-pair
+    item and the three kinds, above it the items in turn and then the
+    three kinds."""
+    kinds = [BLS_IDENT, BLS_ZERO, BLS_PAD]
+    if bucket == 4:
+        return [next(i for i, it in enumerate(items) if len(it) == 1)] + kinds
+    return [i % len(items) for i in range(bucket - 3)] + kinds
+
+
+def _bls_chain(bits) -> tuple:
+    """(Fq12 squarings, products) of the kernels' hard chain (fq381.cuh
+    `bls_pow`): the odd powers m .. m^31 (one squaring, 15 products), then
+    a squaring a bit and a product a window of up to 5 bits ending on a
+    one, the first window a copy."""
+    sq, mul, first, i, n = 1, 15, True, 0, len(bits)
+    while i < n:
+        if not bits[i]:
+            sq, i = sq + 1, i + 1
+            continue
+        j = min(i + 5, n) - 1
+        while not bits[j]:
+            j -= 1
+        if not first:
+            sq, mul = sq + j - i + 1, mul + 1
+        first, i = False, j + 1
+    return sq, mul
+
+
+def _bls_products(name: str, bits, lines: np.ndarray) -> int:
+    """The Fq products one lane runs in the kernel's design (fq381.cuh):
+    a general Fq12 squaring 63, a product 108, a line 54, a cyclotomic
+    squaring 27, over the hard chain of `_bls_chain`; for the fused kernel
+    also the scan's 63 squarings and the lane's live lines (the most of any
+    lane of `lines`), the easy part's 393 on threads and its Fermat chain's
+    485 on one thread."""
+    from cometbft_tpu_torch.ops import bls12 as pb
+    n_sq, n_mul = _bls_chain(bits)
+    if name == "bls_hard_pow":
+        return n_sq * 63 + n_mul * 108
+    slots = lines.reshape(-1, 3 * 2 * pb.NLIMBS, lines.shape[-1])
+    ident = pb._identity_line().reshape(-1, 1)
+    live = int((slots != ident[None]).any(axis=1).sum(axis=0).max())
+    return (BLS_STEPS * 63 + live * 54 + 393 + 485
+            + n_sq * 27 + n_mul * 108)
 
 
 def _bls_mads(name: str, bits, lines: np.ndarray) -> int:
@@ -1895,32 +2511,45 @@ def _bls_bytes(kernel: str, bucket: int, nbits: int) -> int:
     return bucket * (lane_in + 6 * 2 * 24 * 4 + 1) + 4 * nbits
 
 
-def check_bls_kernels(torch, dev, report) -> None:
-    """Hold both BLS kernels against their plain versions on the card at
-    buckets 4, 16 and 64, exactly (the final Fq12 limbs and the
-    verdicts), check the lanes' verdicts against the host oracle, hold
-    `bls_hard_pow` once more with a short exponent, then time each
-    kernel per bucket: device time under torch.profiler (BLS_ROUNDS
-    calls, a session each), one call with CUDA events, and the plain
-    version's call (the holding run, synchronized)."""
+def check_bls_kernels(torch, dev, report, parent) -> None:
+    """Hold both BLS kernels against their plain versions and against the
+    previous design (`parent`, BLS_PREV_CU) on the card at buckets 4, 16 and
+    64, exactly (the final Fq12 limbs and the verdicts), check the lanes'
+    verdicts against the host oracle, hold `bls_hard_pow` once more with a
+    short exponent, then time each kernel per bucket: device time under
+    torch.profiler (BLS_ROUNDS calls a session, sessions in turns with the
+    previous design: new, previous, previous, new), one call with CUDA
+    events, and the plain version's call (the holding run,
+    synchronized)."""
     from cometbft_tpu_torch.crypto import bls12381 as bls
     from cometbft_tpu_torch.ops import bls12 as pb
     items, want = bls_items(bls)
+    items = items + [[]]                          # the all-identity item
+    want = want + [True]
     n = len(items)
-    lines16 = pb._pack_miller_lines(items, 16)   # lanes n.. are pad lanes
+    lines_items = pb._pack_miller_lines(items, 16)   # lane n: a pad lane
     easy = pb._pack([bls.final_exp_easy(bls.miller_product(it))
                      for it in items] + [bls.F12_ONE])
+    kind_col = {BLS_IDENT: n - 1, BLS_PAD: n}
     bits = torch.tensor(pb.HARD_BITS, dtype=torch.int32, device=dev)
     short = torch.tensor(pb.HARD_BITS[:40], dtype=torch.int32, device=dev)
     calls = {}
     for name in ("bls_miller_finalexp", "bls_hard_pow"):
-        report[name] = {"by_bucket": {}, "max_abs_err": 0}
+        report[name] = {"by_bucket": {}, "max_abs_err": 0,
+                        "parent_max_abs_err": 0}
+
+    def columns(arr, idx):
+        cols = [np.zeros_like(arr[..., 0]) if i == BLS_ZERO
+                else arr[..., kind_col.get(i, i)] for i in idx]
+        return np.ascontiguousarray(np.stack(cols, -1))
+
     for bucket in BLS_BUCKETS:
-        idx = _bls_lanes(n, bucket)
-        lines_np = np.ascontiguousarray(lines16[..., idx])
+        idx = _bls_lanes(items[:-1], bucket)
+        lines_np = columns(lines_items, idx)
         lines = torch.from_numpy(lines_np).to(dev)
-        arr = torch.from_numpy(np.ascontiguousarray(easy[..., idx])).to(dev)
-        lane_want = [want[i] if i < n else True for i in idx]
+        arr = torch.from_numpy(columns(easy, idx)).to(dev)
+        lane_want = [False if i == BLS_ZERO else True if i == BLS_PAD
+                     else want[kind_col.get(i, i)] for i in idx]
         for name, fn, plain, x in (
                 ("bls_miller_finalexp", pb.bls_miller_finalexp,
                  pb.bls_miller_finalexp_plain, lines),
@@ -1932,37 +2561,67 @@ def check_bls_kernels(torch, dev, report) -> None:
             pout, pok = plain(x, bits)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
+            qout, qok = parent.call(torch, name, x, bits)
             err = int((out.long() - pout.long()).abs().max())
-            if err or not torch.equal(ok, pok) or ok.tolist() != lane_want:
+            perr = int((out.long() - qout.long()).abs().max())
+            zero = [j for j, i in enumerate(idx) if i == BLS_ZERO]
+            if err or perr or not torch.equal(ok, pok) or \
+                    not torch.equal(ok, qok) or ok.tolist() != lane_want or \
+                    int(out[..., zero].abs().max()):
                 raise AssertionError(
-                    f"{name} at bucket {bucket}: max_abs_err {err}, "
-                    f"verdicts {ok.tolist()}, plain {pok.tolist()}, host "
+                    f"{name} at bucket {bucket}: max_abs_err {err} (plain), "
+                    f"{perr} (previous design), verdicts {ok.tolist()}, "
+                    f"plain {pok.tolist()}, previous {qok.tolist()}, host "
                     f"oracle {lane_want}")
-            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
-                                              err)
-            report[name]["by_bucket"][bucket] = {
+            r = report[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["parent_max_abs_err"] = max(r["parent_max_abs_err"], perr)
+            r["by_bucket"][bucket] = {
+                "lanes": [str(i) for i in idx] if bucket == 4 else
+                f"items in turn, then {BLS_IDENT}, {BLS_ZERO}, {BLS_PAD}",
                 "plain_ms": plain_ms,
                 "call_ms": _median_ms(torch, lambda: fn(x, bits), 3),
                 "bound": _bound_ms(
                     _bls_mads(name, pb.HARD_BITS, lines_np),
-                    _bls_bytes(name, bucket, len(pb.HARD_BITS)))}
+                    _bls_bytes(name, bucket, len(pb.HARD_BITS))),
+                "fq_products_per_lane": _bls_products(name, pb.HARD_BITS,
+                                                      lines_np)}
             calls[(name, bucket)] = (fn, x)
         if bucket == 16:
             out, ok = pb.bls_hard_pow(arr, short)
             pout, pok = pb.bls_hard_pow_plain(arr, short)
             if not (torch.equal(out, pout) and torch.equal(ok, pok)):
                 raise AssertionError("bls_hard_pow, short exponent")
-    # device times: BLS_ROUNDS calls of each (kernel, bucket), one
-    # torch.profiler session each; where the profiler keeps none of them,
-    # `ms` is the CUDA events' time of one call (the kernel and the
-    # ctypes enqueue, tens of microseconds, before it)
+    # device times: BLS_ROUNDS calls of each (kernel, bucket) a
+    # torch.profiler session, in turns with the previous design; where the
+    # profiler keeps none of the new kernel's, `ms` is the CUDA events'
+    # time of one call (the kernel and the ctypes enqueue, tens of
+    # microseconds, before it)
     for (name, bucket), (fn, x) in calls.items():
-        ms, seen, tries = _bls_device_ms(torch, fn, x, bits, name)
+        def prev(a, b, _name=name):
+            return parent.call(torch, _name, a, b)
+        got = {"new": [], "parent": []}
+        tries = {"new": 0, "parent": 0}
+        for who in ("new", "parent", "parent", "new"):
+            us, t = _bls_device_us(
+                torch, fn if who == "new" else prev, x, bits,
+                _source_fns(name) if who == "new"
+                else {BLS_PREV_FNS[name]})
+            got[who] += us
+            tries[who] += t
+        ms = float(np.median(got["new"])) / 1e3 if got["new"] else None
         f = report[name]["by_bucket"][bucket]
-        f.update(profiler_ms=ms, profiled_events=seen, profile_tries=tries,
+        f.update(profiler_ms=ms, profiled_events=len(got["new"]),
+                 profile_tries=tries["new"],
                  ms=f["call_ms"] if ms is None else ms,
                  ms_source="cuda events" if ms is None
-                 else "torch.profiler")
+                 else "torch.profiler",
+                 parent_ms=(float(np.median(got["parent"])) / 1e3
+                            if got["parent"] else None),
+                 parent_profiled_events=len(got["parent"]))
+    report["bls_cycles"] = parent.cycles(torch, 9)
+    print("bls cycles (clock64, one block): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["bls_cycles"].items()), flush=True)
     for name in ("bls_miller_finalexp", "bls_hard_pow"):
         r = report[name]
         top = r["by_bucket"][BLS_BUCKETS[-1]]
@@ -1971,23 +2630,24 @@ def check_bls_kernels(torch, dev, report) -> None:
                  plain_ms=top["plain_ms"], bound=top["bound"])
         print(f"{name}: " + "; ".join(
             f"B={b} device {v['ms']:.3f} ms ({v['ms_source']}, "
-            f"{v['profiled_events']} of {BLS_ROUNDS} profiled), call "
+            f"{v['profiled_events']} of {2 * BLS_ROUNDS} profiled), "
+            f"previous design {v['parent_ms']} ms, call "
             f"{v['call_ms']:.3f} ms, "
             f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), plain "
-            f"{v['plain_ms']:.1f} ms" for b, v in r["by_bucket"].items()),
+            f"{v['plain_ms']:.1f} ms, {v['fq_products_per_lane']} Fq "
+            f"products a lane" for b, v in r["by_bucket"].items()),
             flush=True)
 
 
-def _bls_device_ms(torch, fn, x, bits, name) -> tuple:
-    """The median device ms of BLS_ROUNDS calls of one BLS kernel under
-    torch.profiler, the events the profiler kept, and the sessions it
-    took: a session that loses events runs again, up to PROFILE_TRIES,
-    and the median is taken over the events the last session kept (None
-    if it kept none: on the H100 a session alone after the builds kept
-    every launch, one long session over every BLS call 20 of 30, and a
-    session after the RLC kernels' profiles once none)."""
+def _bls_device_us(torch, fn, x, bits, fns) -> tuple:
+    """The device us of BLS_ROUNDS calls of one BLS kernel under
+    torch.profiler (the events named in `fns` that the session kept), and
+    the sessions it took: a session that loses events runs again, up to
+    PROFILE_TRIES (on the H100 a session alone after the builds kept every
+    launch, one long session over every BLS call 20 of 30, and a session
+    after the RLC kernels' profiles once none)."""
     from torch.profiler import ProfilerActivity, profile
-    fns = _source_fns(name)
+    us = []
     for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2000,7 +2660,7 @@ def _bls_device_ms(torch, fn, x, bits, name) -> tuple:
               and _kernel_name(e) in fns]
         if len(us) == BLS_ROUNDS:
             break
-    return (float(np.median(us)) / 1e3 if us else None), len(us), tries
+    return us, tries
 
 
 class CheckerCalls:
@@ -2378,6 +3038,17 @@ def bls_kernel_rows(report: dict, aggsig: dict) -> list:
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None, "bucket": BLS_BUCKETS[-1],
+            "fq_products_per_lane":
+                r["by_bucket"][BLS_BUCKETS[-1]]["fq_products_per_lane"],
+            "cycles": report["bls_cycles"],
+            "parent": {
+                "design": "one block of 64 threads a lane, 3 serial "
+                          "64-bit-accumulator CIOS Fq products a thread, "
+                          "every squaring a general product (BLS_PREV_CU)",
+                "ms": r["by_bucket"][BLS_BUCKETS[-1]]["parent_ms"],
+                "max_abs_err": r["parent_max_abs_err"],
+                "by_bucket": {b: v["parent_ms"]
+                              for b, v in r["by_bucket"].items()}},
             "by_bucket": r["by_bucket"],
             "launches_genesis": {
                 k: gs[k]["launches"][name] for k in
@@ -2419,16 +3090,19 @@ def main(argv=None) -> int:
     # phase 1: build (the yardstick's nvcc runs beside the port's)
     t0 = time.perf_counter()
     yard = OneThread(_build)
+    bls_parent = BlsYard(_build)
     try:
         log = _build.build_all(verbose=True)
     except BaseException:
         yard.proc.kill()
+        bls_parent.kill()
         raise
-    log = {**log, "one_thread": {"output": yard.load(), "seconds": 0.0}}
+    log = {**log, "one_thread": {"output": yard.load(), "seconds": 0.0},
+           "bls_yardsticks": {"output": bls_parent.load(), "seconds": 0.0}}
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f}s wall, " + ", ".join(
         f"{k} {v['seconds']:.1f}s" for k, v in log.items()
-        if k != "one_thread"), flush=True)
+        if k not in ("one_thread", "bls_yardsticks")), flush=True)
     for name, v in log.items():
         for line in v["output"].splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
@@ -2458,10 +3132,11 @@ def main(argv=None) -> int:
           f"window sums; epilogue at M = {report['rlc_epilogue']['m_held']})",
           flush=True)
     where = breakdown(torch, pkg, tile, dev)
-    check_bls_kernels(torch, dev, report)
-    print(f"bls kernels match their plain versions at B = "
-          f"{', '.join(map(str, BLS_BUCKETS))} (final Fq12 limbs and "
-          f"verdicts, max_abs_err 0; lanes against the host oracle; "
+    check_bls_kernels(torch, dev, report, bls_parent)
+    print(f"bls kernels match their plain versions and the previous design "
+          f"at B = {', '.join(map(str, BLS_BUCKETS))} (final Fq12 limbs and "
+          f"verdicts, max_abs_err 0; lanes against the host oracle, the "
+          f"1-pair, all-identity, zero and pad lanes among them; "
           f"bls_hard_pow also at a 40-bit exponent)", flush=True)
 
     # phase 4: the paths, counts zeroed just before each, read just after
@@ -2602,6 +3277,7 @@ def main(argv=None) -> int:
         "pipeline": pipe, "device_server": server,
         "light_client": light, "mixed_set": mixed, "aggsig": aggsig,
         "bls_kernels": {k: report[k] for k in BLS_KERNELS},
+        "bls_cycles": report["bls_cycles"],
         "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,
         "breakdown": where, "lanes": LANES,

@@ -328,3 +328,56 @@ def test_port_verdicts_match_jitted_jax_programs(items):
     _, ok = pb.bls_hard_pow_plain(
         torch.from_numpy(arr), torch.tensor(pb.HARD_BITS, dtype=torch.int32))
     assert jok.tolist() == ok.tolist() == [True, True, False, True]
+
+
+# --- the lane shapes the kernels treat apart ------------------------------------
+
+LANE_SHAPES = ("one_pair", "all_identity", "pad", "zero")
+
+
+@pytest.fixture(scope="module")
+def lane_shapes(items):
+    """One bucket-4 batch holding each lane shape the kernels treat apart:
+    a 1-pair item, an item whose pairs are all absent (identity lines
+    only), a pad lane, and a lane whose lines are all zero (f = 0). The
+    JAX package's `miller_scan` (over the first step, eagerly: its jit
+    takes minutes on XLA:CPU) and `pow_bits` (at a 2-bit exponent) against
+    the port's plain versions on the same limbs; the plain fused kernel at
+    a short exponent against the oracle."""
+    import jax
+    lines = pb._pack_miller_lines([items["one_pair"], items["none_pair"]], 4)
+    lines[..., 3] = 0
+    step = lines[:1]
+    with jax.disable_jit():
+        jm = np.asarray(jb.miller_scan(jnp.asarray(step)))
+    pm = pb.miller_scan(torch.from_numpy(step)).numpy()
+    easy = [bls.final_exp_easy(bls.miller_product(items["one_pair"])),
+            ONE, ONE, tuple((0, 0) for _ in range(6))]
+    arr = pb._pack(easy)
+    with jax.disable_jit():
+        jp = _stack(jb.pow_bits(_tree(arr, "jax"), (1, 1)))
+    pp, _ = pb.bls_hard_pow_plain(torch.from_numpy(arr),
+                                  torch.tensor((1, 1), dtype=torch.int32))
+    short = pb.HARD_BITS[:12]
+    out, ok = pb.bls_miller_finalexp_plain(
+        torch.from_numpy(lines), torch.tensor(short, dtype=torch.int32))
+    e = int("".join(map(str, short)), 2)
+    want = [bls.f12_pow(bls.final_exp_easy(bls.miller_product(it)), e)
+            for it in (items["one_pair"], [], [])] + \
+        [tuple((0, 0) for _ in range(6))]
+    return {"jax_miller": jm, "port_miller": pm, "jax_pow": jp,
+            "port_pow": pp.numpy(), "fused": out.numpy(), "ok": ok.tolist(),
+            "want": want}
+
+
+@pytest.mark.parametrize("lane", range(len(LANE_SHAPES)), ids=LANE_SHAPES)
+def test_lane_shape_matches_jax_and_oracle(lane_shapes, lane):
+    r = lane_shapes
+    assert np.array_equal(r["port_miller"][..., lane],
+                          r["jax_miller"][..., lane])
+    assert np.array_equal(r["port_pow"][..., lane], r["jax_pow"][..., lane])
+    want = r["want"][lane]
+    assert np.array_equal(r["fused"][..., lane], pb._pack([want])[..., 0])
+    assert r["ok"][lane] == (want == ONE)
+    if LANE_SHAPES[lane] == "zero":
+        assert not r["fused"][..., lane].any()
