@@ -11,13 +11,16 @@
 // writes m^e in canonical limbs, so it can be held against the plain version
 // (ops/bls12.bls_hard_pow_plain) exactly.
 //
-// Bound on the H100: operations. A lane reads and writes 2.3 KB, and its
-// chain is 1,267 squarings and 632 multiplies of Fq12 (chip_smoke.py
+// The JAX program computes the multiply at every bit and selects (1,267
+// squarings and 632 multiplies of Fq12); here the bits (public, the same
+// for every lane) are read in sliding windows of up to 5 bits over the
+// odd powers m .. m^31: 1,265 squarings and 227 products, the same
+// function.
+//
+// Bound on the H100: operations. A lane reads and writes 2.3 KB; its
+// chain, the windowed one, at each operation's least (chip_smoke.py
 // `_bls_mads`: a multiply 108 Fq products, a general squaring 57, an Fq
-// product 576 int32 multiply-adds). The JAX program computes the multiply
-// at every bit and selects; here the bits (public, the same for every
-// lane) are read in sliding windows of up to 5 bits over the odd powers
-// m .. m^31: 1,265 squarings and 227 products, the same function.
+// product 576 int32 multiply-adds) is 96,621 Fq products.
 //
 // Design (fq381.cuh, block code): one lane on one block of 128 threads,
 // so at B <= 64 the time is one lane's latency. Each Fq12 operation is a

@@ -20,8 +20,8 @@
 //
 // Bound on the H100: operations, each at its least (chip_smoke.py
 // `_bls_mads`): the scan's squarings after the first and its lines that
-// are not the identity, the easy part, and the hard chain with cyclotomic
-// squarings. The lines are 4.6 MB at B = 64, a few microseconds of memory
+// are not the identity, the easy part, and the windowed hard chain below
+// with cyclotomic squarings (18 Fq products each). The lines are 4.6 MB at B = 64, a few microseconds of memory
 // traffic.
 //
 // Design (fq381.cuh, block code): one lane on one block of 128 threads,
