@@ -19,14 +19,17 @@ Phases; any failure exits non-zero:
    addition, from the same fe25519.cuh) and the BLS kernels' previous
    design, BLS_PREV_CU; print the build seconds, the registers and spills
    ptxas reports, and the card's name and power limit.
-2. Generate the chain most later phases use, from --seed: 48 blocks of
-   a 200-validator set, 2 txs a block, through the real executor on the
+2. Generate the pipeline's chain from --seed: 121 blocks of a
+   200-validator set, 2 txs a block, through the real executor on the
    card (`engine/chain_gen.generate_chain`, as `bench.py:154` sizes
-   blocksync); 9,600 precommit signatures over real sign-bytes. Its
-   first 8,192 lanes, flattened with `marshal_commit`, are the seam's
-   tile. Then the pipeline's chain, the same but 121 blocks: three full
-   tiles of 40 x 200 = 8,000 lanes and one more block (24,200
-   signatures), enough to keep several tiles in flight.
+   blocksync): three full tiles of 40 x 200 = 8,000 lanes and one more
+   block (24,200 precommit signatures over real sign-bytes), enough to
+   keep several tiles in flight. The chain most later phases use is its
+   first 48 blocks (`chain_prefix`: `generate_chain` makes block h the
+   same whatever the chain's length, so these are the blocks and
+   commits of a 48-block chain from the same seed, 9,600 signatures;
+   the generator's app is replayed to 48). The 48-block chain's first
+   8,192 lanes, flattened with `marshal_commit`, are the seam's tile.
 3. Hold each kernel against its plain torch version on the card at the
    main path's shapes: decompression of the tile's A and R encodings in
    one call of 16,384 lanes, as the RLC verify makes it, with real, edge
@@ -132,9 +135,10 @@ Phases; any failure exits non-zero:
      must ban height 3 or 4;
    - aggsig (BLS aggregate commits), each pass with the signature cache
      reset: genesis PoP admission of a 150-validator BLS set on the host
-     RLC route from a cold process and on the kernel route (the fused
-     kernel prewarmed at bucket 64: 3 launches), clean and with one bad
-     PoP (rejected exactly, and alike on the host route over 16 keys);
+     RLC route (`register_pops_batch(device="cpu")`) and on the kernel
+     route (the card, the default, with no prewarm: 3 launches), clean
+     and with one bad PoP (rejected exactly, and alike on the host route
+     over 16 keys);
      `verify_commit` of the set's 150-signer aggregated commit (one
      launch at bucket 4; a flipped aggregate byte is rejected) and of a
      multi-group aggregate over 16 validators (17 pairs: the host Miller
@@ -145,6 +149,36 @@ Phases; any failure exits non-zero:
      `bls_miller_finalexp` launch per checker call with pending work
      (the first tile: 62 seals + 2 canaries, bucket 64), each launch
      timed with CUDA events (the card's idle share);
+   - seal sync (`sealsync.SealAdopter(device="cuda")`) over that
+     63-block aggregated chain, three passes into fresh stores and
+     caches: the defaults (max_skip 64, tile 32: one pivot, one
+     `bls_miller_finalexp` launch), max_skip 1 (63 pivots in tiles of
+     32, each tile and 2 canaries in bucket 64: two launches) and the
+     deep forgery at the tip ("bitmap": only the pivot's pairing on the
+     card rejects it; a ban at 63, then the retry adopts); each must
+     adopt to the tip, its launches timed with CUDA events; then the
+     bodies backfill through `BlocksyncReactor.sync` into the first
+     pass's store with its cache: every seal an "ok" cache hit, no BLS
+     launch, the generator's app state;
+   - the light-client farm (`farm.VerificationFarm(device="cuda")`)
+     over the 48-block chain: 64 sessions subscribe at trusted heights
+     1-8 in one wave (8 root commits of 134 lanes: one flush of ~1,070
+     lanes), then one height a wave every session below it verifies it
+     (one flush a wave, one new commit's 134 lanes after the cache and
+     the cross-session dedup), to the tip; every session trusted at 48
+     with the sequential light client's heights, the lanes through the
+     kernels, no drain; a second farm over a copy of the chain with a
+     flipped signature byte in commit 20 rejects the verify of 20 and
+     trusts nothing past 19; 8 waves of a third farm under
+     torch.profiler (the card's idle share);
+   - tx admission (`ingest.IngestPipeline(device="cuda")` over a
+     10,000-tx `CListMempool`): 8,192 envelopes from 256 keys (7,872
+     valid, 128 tampered, 64 duplicates, 64 malformed, 64 rejected by
+     the app), signed before the timer, submitted, one flush: every
+     code as made, the FIFO the valid txs in order, one "kernel" batch
+     of 8,064 lanes (attributed per lane); then 8,193 distinct valid
+     envelopes into a fresh pipeline: IngestShed at the 8,193rd, a
+     profiled flush (the card's idle share), the retry admitted;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
@@ -153,10 +187,11 @@ Phases; any failure exits non-zero:
    the one-thread parent's device time from the same rounds, and for the
    BLS kernels the previous design's;
    `rlc_window_sums` counts two launches a call, and the launches of the
-   pipelined syncs, of the device server's paths, of the light client
-   and of the mixed set; the BLS kernels' rows with the launches of
-   their own paths, the aggregated catch-up and the multi-group
-   `verify_commit`), a timing line with the catch-up sigs/s and
+   pipelined syncs, of the device server's paths, of the light client,
+   of the mixed set, of the farm and of tx admission; the BLS kernels'
+   rows with the launches of their own paths, the aggregated catch-up
+   and the multi-group `verify_commit`, and of seal sync's passes), a
+   timing line with the catch-up sigs/s and
    where the sync's time goes, the pipelined depths' medians and
    spreads, the server's stats, the light client's headers/s and the
    mixed set's pass times, the card's name and power limit, and last
@@ -267,6 +302,24 @@ AGG_GROUPS = 16
 AGG_BLOCKS = 63
 AGG_VALIDATORS = 16
 AGG_TILE = 62
+# The light-client farm (PERF.md §4): sessions subscribe at trusted
+# heights 1..FARM_ROOTS of the 48-block, 200-validator chain, then walk
+# to the tip one height a wave; a forged signature in commit FARM_FORGED
+# of a copy of the chain; FARM_PROFILED waves of another farm profiled
+FARM_SESSIONS = 64
+FARM_ROOTS = 8
+FARM_FORGED = 20
+FARM_PROFILED = 8
+# Tx admission: one burst the width of a blocksync flush
+# (`ingest/admission.DEFAULT_MAX_PENDING`), from 256 keys; the mempool
+# holds 10,000 (its default 5,000 would answer most of the burst
+# "mempool is full")
+INGEST_KEYS = 256
+INGEST_MIX = {"valid": 7872, "tampered": 128, "duplicate": 64,
+              "malformed": 64, "app_invalid": 64}
+INGEST_BANNED = b"banned-"
+INGEST_MEMPOOL = 10_000
+INGEST_SHED_EXTRA = 321   # 7,872 + 321 = 8,193 distinct valid envelopes
 
 # The one-thread designs that csrc/pt_decompress.cu and csrc/pt_add.cu
 # replaced (one lane per thread, 128-thread blocks, fe25519.cuh's
@@ -985,6 +1038,34 @@ def make_chain(seed: int, n_blocks: int):
                            txs_per_block=2, seed=seed,
                            app_factory=app_factory, device="cuda")
     return chain, apps[0]
+
+
+def chain_prefix(chain, n_blocks: int):
+    """The first `n_blocks` blocks of a generated chain and the
+    generator's app replayed to that height (the blocks apply as
+    verified: their commits were verified as the chain was made).
+    `generate_chain` makes block h the same whatever the chain's length,
+    so this is the chain `make_chain(seed, n_blocks)` makes, unsigned
+    again. The replay must reach the app hash the next block records."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import State
+    app = KVStoreApplication()
+    app.init_chain(chain.chain_id, chain.genesis.initial_height, [], b"")
+    executor = BlockExecutor(app, device="cuda")
+    state = State.from_genesis(chain.genesis)
+    for block_id, block in zip(chain.block_ids[:n_blocks],
+                               chain.blocks[:n_blocks]):
+        state, _ = executor.apply_block(state, block_id, block,
+                                        verified=True)
+    if app.last_app_hash != chain.blocks[n_blocks].header.app_hash:
+        raise AssertionError("the replayed app does not reach the chain's "
+                             f"app hash at height {n_blocks}")
+    return dataclasses.replace(
+        chain, blocks=chain.blocks[:n_blocks],
+        block_ids=chain.block_ids[:n_blocks],
+        seen_commits=chain.seen_commits[:n_blocks],
+        valsets=chain.valsets[:n_blocks]), app
 
 
 def tile_from_chain(ref, chain, lanes: int):
@@ -2038,6 +2119,8 @@ def run_light_client(torch, pkg, chain, per_call: dict) -> dict:
     if lb.header.hash() != chain.blocks[-1].hash() or any(
             lc.trusted_light_block(h) is None for h in range(1, top + 1)):
         raise AssertionError("sequential light client: wrong tip or a gap")
+    out["sequential_trusted"] = [h for h in range(1, top + 1)
+                                 if lc.trusted_light_block(h)]
     out["sequential"] = {
         "wall_s": wall, "headers_per_s": top / wall,
         "ms_per_header": wall / top * 1e3,
@@ -2704,15 +2787,17 @@ def _agg_chain(seed: int, n_blocks: int, n_validators: int, chain_id: str,
     return chain, apps[0], time.perf_counter() - t0
 
 
-def _admit(torch, pops: dict) -> dict:
-    """register_pops_batch from an empty registry, timed and counted."""
+def _admit(torch, pops: dict, device=None) -> dict:
+    """register_pops_batch from an empty registry, timed and counted:
+    on the card (the kernel route), or with device="cpu" (the host RLC
+    route)."""
     from cometbft_tpu_torch.aggsig import aggregate as agg
     from cometbft_tpu_torch.ops import bls12 as pb
     agg.reset_pop_registry()
     torch.cuda.synchronize()
     pb.reset_launches()
     t0 = time.perf_counter()
-    ok = agg.register_pops_batch(dict(pops))
+    ok = agg.register_pops_batch(dict(pops), device=device)
     torch.cuda.synchronize()
     return {"ok": ok, "wall_s": time.perf_counter() - t0,
             "admitted": [agg.has_pop(p) for p in pops],
@@ -2721,38 +2806,25 @@ def _admit(torch, pops: dict) -> dict:
 
 def run_aggsig_genesis(torch, seed: int) -> dict:
     """Pass 1: genesis PoP admission of an AGG_SET-validator BLS set, on
-    the host RLC route from a cold process, clean and, over the first
-    AGG_BAD_HOST keys, with key AGG_BAD's PoP replaced by another key's
-    (a failed RLC round verifies every key alone); then on the kernel
-    route (`bls_miller_finalexp` prewarmed at bucket 64: AGG_SET + 2
-    canary lanes in chunks of 64, 3 launches), clean and with the bad
-    PoP, which must be rejected exactly and as the host route rejects
-    it. Returns the figures and the set's chain, whose height-1 seal
-    pass 2 verifies."""
+    the host RLC route (`register_pops_batch(device="cpu")`), clean and,
+    over the first AGG_BAD_HOST keys, with key AGG_BAD's PoP replaced by
+    another key's (a failed RLC round verifies every key alone); then on
+    the kernel route (the card, the default: AGG_SET + 2 canary lanes in
+    chunks of 64, 3 `bls_miller_finalexp` launches, with no prewarm),
+    clean and with the bad PoP, which must be rejected exactly and as
+    the host route rejects it. Returns the figures and the set's chain,
+    whose height-1 seal pass 2 verifies."""
     from cometbft_tpu_torch.aggsig import aggregate as agg
-    from cometbft_tpu_torch.aggsig import verify as aggv
-    from cometbft_tpu_torch.crypto import bls12381 as bls
     from cometbft_tpu_torch.ops import bls12 as pb
-    pb.reset_launched()
     chain, _app, gen_s = _agg_chain(seed, 2, AGG_SET, "aggsig-set")
     pops = dict(chain.genesis.bls_pops)
     pubs = list(pops)
     out = {"set_chain_s": gen_s}
-    pb.reset_launched()
     bad = dict(pops)
     bad[pubs[AGG_BAD]] = pops[pubs[AGG_BAD + 1]]    # another key's PoP
-    pb.reset_launched()                             # a cold process
-    out["host_clean"] = _admit(torch, pops)
-    out["host_bad"] = _admit(torch, {p: bad[p] for p in pubs[:AGG_BAD_HOST]})
-    q = bls.G2_GEN
-    bucket = pb.bucket_for(len(pops) + 2)
-    t0 = time.perf_counter()
-    aggv.shared_pairing().check(
-        [[(bls.G1_NEG, q), (bls.G1_GEN, q)]] * (bucket - 2))
-    torch.cuda.synchronize()
-    out["prewarm_s"] = time.perf_counter() - t0
-    if not pb.launched("bls_miller_finalexp", bucket):
-        raise AssertionError(f"the prewarm did not launch at {bucket}")
+    out["host_clean"] = _admit(torch, pops, device="cpu")
+    out["host_bad"] = _admit(torch, {p: bad[p] for p in pubs[:AGG_BAD_HOST]},
+                             device="cpu")
     out["kernel_clean"] = _admit(torch, pops)
     out["kernel_bad"] = _admit(torch, bad)
     chunks = -(-(len(pops) + 2) // pb.BUCKETS[-1])
@@ -2942,13 +3014,15 @@ def run_aggsig_sync(torch, chain, gen_app, seed: int, depth: int,
             "span_s": span_s}
 
 
-def run_aggsig(torch, seed: int) -> dict:
+def run_aggsig(torch, seed: int) -> tuple:
     """The aggsig paths on the card (PERF.md §2-§5): genesis admission,
     verify_commit of the AGG_SET-signer and of a multi-group aggregate,
     and aggregated catch-up over an AGG_BLOCKS-block chain of
     AGG_VALIDATORS validators at depth 1 (profiled) and 2, and tampered
     at one height (a ban, then the sync completes). Each pass resets the
-    signature cache; the launch counts of the passes are summed."""
+    signature cache; the launch counts of the passes are summed. Returns
+    the figures, and the aggregated chain and its generator's app (the
+    seal-sync phase reuses them)."""
     from cometbft_tpu_torch.aggsig import aggregate as agg
     out: dict = {}
     t0 = time.perf_counter()
@@ -2981,13 +3055,13 @@ def run_aggsig(torch, seed: int) -> dict:
         k: sum(f["launches"][k] for f in out["commits"].values()
                if isinstance(f, dict) and "launches" in f)
         for k in ("bls_miller_finalexp", "bls_hard_pow")}
-    return out
+    return out, chain, gen_app
 
 
 def print_aggsig(aggsig: dict, gpu: str) -> None:
     gs, cm, sy = aggsig["genesis"], aggsig["commits"], aggsig["sync"]
     print(f"aggsig: genesis admission of {AGG_SET} PoPs "
-          f"{gs['host_clean']['wall_s']:.3f} s on the host RLC route (cold), "
+          f"{gs['host_clean']['wall_s']:.3f} s on the host RLC route, "
           f"{gs['kernel_clean']['wall_s']:.3f} s on the kernel route "
           f"({gs['kernel_clean']['launches']['bls_miller_finalexp']} "
           f"launches), bad PoP rejected on both; verify_commit of the "
@@ -3008,11 +3082,12 @@ def print_aggsig(aggsig: dict, gpu: str) -> None:
           f"{aggsig['sync_pass_s']:.1f} s; {gpu}", flush=True)
 
 
-def bls_kernel_rows(report: dict, aggsig: dict) -> list:
+def bls_kernel_rows(report: dict, aggsig: dict, seal: dict) -> list:
     """The kernels line's rows of the two BLS kernels: launches from each
     kernel's own path (the aggregated catch-up for the fused kernel, the
     multi-group verify_commit for the hard chain), times and bounds at
-    bucket 64, and every bucket and path beside them."""
+    bucket 64, and every bucket and path beside them (seal sync's passes
+    among them)."""
     gs, cm, sy = aggsig["genesis"], aggsig["commits"], aggsig["sync"]
     rows = []
     paths = {"bls_miller_finalexp": ("aggregated catch-up",
@@ -3054,8 +3129,499 @@ def bls_kernel_rows(report: dict, aggsig: dict) -> list:
                 ("set_clean", "set_flipped", "groups_clean",
                  "groups_tampered")},
             "launches_catchup": {k: f["launches"][name]
-                                 for k, f in sy.items()}})
+                                 for k, f in sy.items()},
+            "launches_sealsync": {
+                k: seal[k]["launches"][name] for k in
+                ("default", "max_skip_1", "forged", "backfill")}})
     return rows
+
+
+# --- seal sync, the light-client farm, tx admission (slice 10) ----------------
+
+def _span_s(spans) -> dict:
+    out: dict = {}
+    for sp in spans:
+        out[sp["name"]] = out.get(sp["name"], 0.0) + \
+            (sp["t1"] - sp["t0"]) / 1e9
+    return out
+
+
+def _seal_pass(torch, chain, seed: int, forge=None, **kw) -> tuple:
+    """One `SealAdopter.adopt` from genesis over the aggregated chain on
+    the card, into a fresh store and signature cache (`kw`: max_skip,
+    tile_size; `forge`: the seal source's forgery at the tip until a
+    ban). Every PairingChecker call with pending work is one
+    `bls_miller_finalexp` launch, timed with CUDA events (KernelClock).
+    -> (figures, store, cache)."""
+    from cometbft_tpu_torch import trace
+    from cometbft_tpu_torch.aggsig import verify as aggv
+    from cometbft_tpu_torch.db.kv import MemDB
+    from cometbft_tpu_torch.engine.chain_gen import ChainSealSource
+    from cometbft_tpu_torch.libs.metrics import Registry
+    from cometbft_tpu_torch.libs.metrics_gen import SealsyncMetrics
+    from cometbft_tpu_torch.ops import bls12 as pb
+    from cometbft_tpu_torch.pipeline.cache import SigCache
+    from cometbft_tpu_torch.sealsync import SealAdopter
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    top = chain.max_height()
+    src = ChainSealSource(chain, {top: forge} if forge else {})
+    store, cache = BlockStore(MemDB()), SigCache()
+    metrics = SealsyncMetrics(Registry())
+    adopter = SealAdopter(chain.chain_id, store, src, cache=cache,
+                          metrics=metrics, device="cuda", **kw)
+    state = State.from_genesis(chain.genesis)
+    canaries0 = aggv.shared_pairing().canary_failures
+    _, recorder = trace.enable(seed=seed)
+    counter = CheckerCalls()
+    clock = KernelClock(torch)
+    try:
+        torch.cuda.synchronize()
+        pb.reset_launches()
+        t0 = time.perf_counter()
+        tip = adopter.adopt(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(pb.LAUNCHES)
+        spans = recorder.snapshot()
+    finally:
+        marks = clock.close()
+        counter.close()
+        trace.disable()
+    span_s = _span_s(spans)
+    busy = sum(ms for _n, _b, ms in marks) / 1e3
+    fig = {"tip": tip, "adopted_tip": store.adopted_tip(),
+           "max_skip": adopter.max_skip, "tile": adopter.tile_size,
+           "pivots_settled": int(metrics.pivots_verified.value()),
+           "pairings_skipped": int(metrics.pairings_skipped.value()),
+           "seals_adopted": int(metrics.seals_adopted.value()),
+           "adoptions_rejected": int(metrics.adoptions_rejected.value()),
+           "banned": list(src.banned), "wall_s": wall,
+           "launches": launches, "checker_calls": dict(counter.calls),
+           "kernel_ms_by_bucket": [(b, ms) for _n, b, ms in marks],
+           "device_busy_s": busy, "idle_share": 1 - busy / wall,
+           "settle_s": span_s.get("aggsig.settle", 0.0),
+           "marshal_s": span_s.get("aggsig.marshal", 0.0),
+           "canary_failures": aggv.shared_pairing().canary_failures
+           - canaries0}
+    fig["settle_share"] = fig["settle_s"] / wall
+    if tip != top or store.adopted_tip() != top or \
+            launches["bls_miller_finalexp"] != counter.calls[
+                "PairingChecker"] or launches["bls_hard_pow"] or \
+            len(marks) != sum(launches.values()) or fig["canary_failures"]:
+        raise AssertionError(f"seal sync, {kw} {forge}: {fig}")
+    return fig, store, cache
+
+
+def run_sealsync(torch, chain, gen_app, seed: int) -> dict:
+    """Seal sync over the aggregated chain of the aggsig phase (reused:
+    host signing is ~27-40 ms a BLS signature), three passes, each into
+    a fresh store and signature cache: (a) the defaults, max_skip 64 and
+    tile 32 (one pivot, the tip: one launch); (b) max_skip 1, every
+    height a pivot: 63 pivots in tiles of 32, each tile and its 2
+    canaries in bucket 64 (two launches); (c) the deep forgery at the tip
+    ("bitmap": structure and tally pass, only the pivot's pairing on the
+    card rejects it): the tip banned, one rejection, the retry adopts
+    (two launches). Then the bodies backfill: `BlocksyncReactor.sync` of
+    the chain into pass (a)'s store with its signature cache, where every
+    seal, checked one height at a time first, is an "ok" cache hit: no
+    BLS launch, the generator's app state, every adopted record
+    superseded by its body."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.aggsig.verify import prepare_full_commit
+    from cometbft_tpu_torch.engine.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.engine.chain_gen import LocalChainSource
+    from cometbft_tpu_torch.ops import bls12 as pb
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import State
+    top = chain.max_height()
+    out: dict = {"blocks": top, "validators": len(chain.valsets[0])}
+    out["default"], store, cache = _seal_pass(torch, chain, seed)
+    out["max_skip_1"], _, _ = _seal_pass(torch, chain, seed, max_skip=1)
+    out["forged"], _, _ = _seal_pass(torch, chain, seed, forge="bitmap")
+    tiles = -(-top // out["max_skip_1"]["tile"])
+    for name, pivots, launches, banned in (
+            ("default", 1, 1, []), ("max_skip_1", top, tiles, []),
+            ("forged", 2, 2, [top])):
+        f = out[name]
+        if f["pivots_settled"] != pivots or f["banned"] != banned or \
+                f["launches"]["bls_miller_finalexp"] != launches or \
+                f["adoptions_rejected"] != len(banned):
+            raise AssertionError(f"seal sync, pass {name}: {f}")
+    ok = [prepare_full_commit(chain.chain_id, chain.valsets[h - 1],
+                              chain.seen_commits[h - 1],
+                              chain.valsets[h - 1].total_voting_power()
+                              * 2 // 3, cache=cache).status
+          for h in range(1, top + 1)]
+    if ok != ["ok"] * top:
+        raise AssertionError(f"adopted seals that would pair again: "
+                             f"{[h + 1 for h, v in enumerate(ok) if v != 'ok']}")
+    app = KVStoreApplication()
+    app.init_chain(chain.chain_id, 1, [], b"")
+    reactor = BlocksyncReactor(
+        BlockExecutor(app, device="cuda"), store, LocalChainSource(chain),
+        chain.chain_id, tile_size=AGG_TILE, batch_size=64, cache=cache,
+        device="cuda")
+    torch.cuda.synchronize()
+    pb.reset_launches()
+    t0 = time.perf_counter()
+    state = reactor.sync(State.from_genesis(chain.genesis))
+    torch.cuda.synchronize()
+    out["backfill"] = {"wall_s": time.perf_counter() - t0,
+                       "launches": dict(pb.LAUNCHES),
+                       "height": state.last_block_height,
+                       "store_height": store.height(),
+                       "adopted_records_left": len(
+                           store.adopted_seal_heights())}
+    if state.last_block_height != top or \
+            state.app_hash != gen_app.last_app_hash or \
+            app.state != gen_app.state or any(pb.LAUNCHES.values()) or \
+            store.height() != top or store.adopted_seal_heights():
+        raise AssertionError(f"seal-sync backfill: {out['backfill']}")
+    return out
+
+
+def print_sealsync(seal: dict, gpu: str) -> None:
+    parts = []
+    for name in ("default", "max_skip_1", "forged"):
+        f = seal[name]
+        parts.append(
+            f"{name} (max_skip {f['max_skip']}, tile {f['tile']}): tip "
+            f"{f['tip']}, {f['pivots_settled']} pivots settled, "
+            f"{f['launches']['bls_miller_finalexp']} bls_miller_finalexp "
+            f"launches, {f['pairings_skipped']} pairings skipped, banned "
+            f"{f['banned']}, {f['wall_s']:.3f} s (aggsig.settle "
+            f"{f['settle_share']:.3f} of it; card idle "
+            f"{f['idle_share']:.4f})")
+    b = seal["backfill"]
+    print(f"seal sync over {seal['blocks']} blocks of {seal['validators']} "
+          f"BLS validators: " + "; ".join(parts) + f"; body backfill "
+          f"{b['wall_s']:.3f} s to height {b['height']}, BLS launches "
+          f"{b['launches']}; {gpu}", flush=True)
+
+
+def _farm(chain, provider=None):
+    from cometbft_tpu_torch.engine.chain_gen import ChainLightProvider
+    from cometbft_tpu_torch.farm import VerificationFarm
+    from cometbft_tpu_torch.pipeline.cache import SigCache
+    from cometbft_tpu_torch.types.proto import Timestamp
+    now = Timestamp(1_700_000_000 + chain.max_height() + 5, 0)
+    return VerificationFarm(chain.chain_id,
+                            provider or ChainLightProvider(chain),
+                            cache=SigCache(), now_fn=lambda: now,
+                            device="cuda")
+
+
+def _farm_waves(farm, sessions, heights) -> list:
+    """Every session below each height verifies it: one begin_verify a
+    session, one flush, one finish_verify a session -> lanes a flush."""
+    widths = []
+    for h in heights:
+        pend = [farm.begin_verify(s.session_id, h) for s in sessions
+                if s.latest().height < h]
+        widths.append(farm.batcher.flush())
+        for p in pend:
+            farm.finish_verify(p)
+    return widths
+
+
+def run_farm(torch, pkg, chain, light: dict, per_call: dict) -> dict:
+    """The light-client verification farm over the chain on the card:
+    FARM_SESSIONS sessions subscribe at trusted heights 1..FARM_ROOTS
+    (FARM_SESSIONS / FARM_ROOTS apiece) in one wave (8 root commits x 134
+    lanes, past 2/3 of 200: one flush of ~1,070 unique lanes, the kernel
+    route at batch 2048); then, one height a wave, every session below a
+    height verifies it, one flush a wave, up to the tip (the root
+    commits' lanes are cache hits; each later wave is one new commit's
+    134 lanes, deduplicated across sessions: the kernel route at 256).
+    Every session must end trusted at the tip with the heights the
+    sequential light client trusted, through the kernels only
+    (lanes_by_backend, `fallbacks` 0, the RLC launches one set per
+    flush and canary run). A second farm whose provider serves a copy of
+    the chain with a flipped signature byte in commit FARM_FORGED
+    rejects a session's verify of that height and trusts nothing past
+    FARM_FORGED - 1. Then FARM_PROFILED waves of a third farm (all
+    sessions at one root) under torch.profiler: the card's idle share."""
+    from cometbft_tpu_torch.engine.chain_gen import ChainLightProvider
+    from cometbft_tpu_torch.farm import VerifyRejected
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    top = chain.max_height()
+    reset_shared_cache()
+    farm = _farm(chain)
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    roots = [1 + i % FARM_ROOTS for i in range(FARM_SESSIONS)]
+    pend = [farm.begin_subscribe(r, chain.blocks[r - 1].hash(), 10**9)
+            for r in roots]
+    widths = [farm.batcher.flush()]
+    sessions = [farm.finish_subscribe(p) for p in pend]
+    widths += _farm_waves(farm, sessions, range(2, top + 1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = farm.status()
+    accepted = st["headers_accepted"]
+    seq = light["sequential_trusted"]
+    wrong = [s.session_id for s, r in zip(sessions, roots)
+             if s.latest().height != top
+             or s.latest().header.hash() != chain.blocks[-1].hash()
+             or [h for h in range(1, top + 1) if s.store.light_block(h)]
+             != [h for h in seq if h >= r]]
+    lanes = st["lanes_by_backend"]
+    flushed = [w for w in widths if w]
+    out = {"sessions": FARM_SESSIONS, "roots": FARM_ROOTS,
+           "wall_s": wall, "headers_accepted": accepted,
+           "headers_per_s": accepted / wall, "flushes": st["batches"],
+           "widths": widths, "median_width": float(np.median(flushed)),
+           "max_width": st["max_batch_width"],
+           "dedup_batch_hits": st["dedup_batch_hits"],
+           "cache_hit_rate": st["cache_hit_rate"],
+           "lanes_by_backend": lanes, "fallbacks": st["fallbacks"],
+           **count.read("farm", want_flushes=sum(
+               1 for w in flushed if w >= 128)),
+           "wrong_sessions": wrong}
+    if wrong or not set(lanes) <= {"kernel", "cpu"} or \
+            lanes.get("kernel", 0) <= lanes.get("cpu", 0) or \
+            st["fallbacks"] or accepted != sum(top - r for r in roots):
+        raise AssertionError(f"farm: {out}")
+
+    forged = dataclasses.replace(chain, seen_commits=list(chain.seen_commits))
+    c = forged.seen_commits[FARM_FORGED - 1]
+    sigs = list(c.signatures)
+    s = sigs[0].signature
+    sigs[0] = dataclasses.replace(sigs[0], signature=s[:40]
+                                  + bytes([s[40] ^ 1]) + s[41:])
+    forged.seen_commits[FARM_FORGED - 1] = dataclasses.replace(
+        c, signatures=sigs)
+    bad = _farm(chain, ChainLightProvider(forged))
+    count = FlushCount(torch, pkg, per_call)
+    sess = bad.subscribe(FARM_FORGED - 1,
+                         chain.blocks[FARM_FORGED - 2].hash(), 10**9)
+    try:
+        bad.verify(sess.session_id, FARM_FORGED)
+        raise AssertionError("the farm accepted a forged signature")
+    except VerifyRejected as e:
+        out["forged"] = {
+            "error": str(e)[:120], "held_at": sess.latest().height,
+            "trusted_past": [h for h in range(FARM_FORGED, top + 1)
+                             if sess.store.light_block(h)],
+            **count.read("farm, forged", want_flushes=2)}
+    if out["forged"]["held_at"] != FARM_FORGED - 1 or \
+            out["forged"]["trusted_past"] or \
+            out["forged"]["per_lane"] != 1:
+        raise AssertionError(f"forged farm: {out['forged']}")
+
+    prof = _farm(chain)
+    root = top - FARM_PROFILED
+    psess = [prof.subscribe(root, chain.blocks[root - 1].hash(), 10**9)
+             for _ in range(FARM_SESSIONS)]
+    launches, busy_us, pwall = _device_kernels(
+        torch, lambda: _farm_waves(prof, psess, range(root + 1, top + 1)))
+    out["profiled"] = {"waves": FARM_PROFILED, "kernel_launches": launches,
+                       "device_busy_s": busy_us / 1e6, "wall_s": pwall,
+                       "idle_share": 1 - busy_us / 1e6 / pwall}
+    return out
+
+
+def print_farm(farm: dict, gpu: str) -> None:
+    print(f"light-client farm: {farm['sessions']} sessions at "
+          f"{farm['roots']} roots over {VALIDATORS} validators, "
+          f"{farm['headers_accepted']} headers in {farm['wall_s']:.3f} s "
+          f"({farm['headers_per_s']:.1f} headers/s); {farm['flushes']} "
+          f"flushes, lanes a wave {farm['widths']}, median "
+          f"{farm['median_width']:.0f}, largest {farm['max_width']}; dedup "
+          f"hits {farm['dedup_batch_hits']}; lanes {farm['lanes_by_backend']}"
+          f"; fallbacks {farm['fallbacks']}; forged commit "
+          f"{FARM_FORGED}: held at {farm['forged']['held_at']}; card idle "
+          f"{farm['profiled']['idle_share']:.3f} over {FARM_PROFILED} "
+          f"profiled waves; RLC launches {farm['launches']}; {gpu}",
+          flush=True)
+
+
+def _ingest_keys(seed: int):
+    import random
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    rng = random.Random(seed)
+    return [Ed25519PrivKey(bytes(rng.randrange(256) for _ in range(32)))
+            for _ in range(INGEST_KEYS)]
+
+
+def _ingest_app():
+    """The app's CheckTx: code 0 for a payload with "=", 1 without, 2
+    for a key under the banned prefix."""
+    from cometbft_tpu_torch.ingest import unwrap_payload
+
+    def check_fn(tx):
+        payload = unwrap_payload(tx)
+        if b"=" not in payload:
+            return 1, 0
+        if payload.startswith(INGEST_BANNED):
+            return 2, 0
+        return 0, 1
+    return check_fn
+
+
+def ingest_mix(seed: int) -> tuple:
+    """The burst, signed before any timer: INGEST_MIX's kinds from
+    INGEST_KEYS keys, shuffled from `seed` -> ([(kind, tx)], the extra
+    valid envelopes of the shed case, signing seconds)."""
+    import random
+    from cometbft_tpu_torch.ingest import make_signed_tx
+    from cometbft_tpu_torch.ingest.tx import MAGIC
+    keys = _ingest_keys(seed)
+    rng = random.Random(seed + 1)
+    t0 = time.perf_counter()
+    valid = [make_signed_tx(keys[i % len(keys)], b"tx%d=v%d" % (i, seed))
+             for i in range(INGEST_MIX["valid"])]
+    txs = [("valid", tx) for tx in valid]
+    for i in range(INGEST_MIX["tampered"]):
+        tx = bytearray(make_signed_tx(keys[i % len(keys)],
+                                      b"bad%d=v" % i))
+        tx[len(MAGIC) + 32 + 40] ^= 1          # a byte of s
+        txs.append(("tampered", bytes(tx)))
+    txs += [("app_invalid", make_signed_tx(keys[i % len(keys)],
+                                           INGEST_BANNED + b"%d=v" % i))
+            for i in range(INGEST_MIX["app_invalid"])]
+    txs += [("malformed", MAGIC + bytes([i]) * 10)
+            for i in range(INGEST_MIX["malformed"])]
+    rng.shuffle(txs)
+    dups = [("duplicate", tx) for tx in rng.sample(valid,
+                                                   INGEST_MIX["duplicate"])]
+    for d in dups:                # each after its original
+        at = next(i for i, (_k, t) in enumerate(txs) if t == d[1])
+        txs.insert(rng.randrange(at + 1, len(txs) + 1), d)
+    extra = [make_signed_tx(keys[i % len(keys)], b"more%d=v" % i)
+             for i in range(INGEST_SHED_EXTRA)]
+    return txs, extra, time.perf_counter() - t0
+
+
+class PrepareClock:
+    """Wall time of every `ops.ed25519.prepare_batch` call (the host
+    marshal of a flush) while installed."""
+
+    def __init__(self, ped):
+        self.ped, self.orig, self.s = ped, ped.prepare_batch, []
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*a, **kw)
+            finally:
+                self.s.append(time.perf_counter() - t0)
+        ped.prepare_batch = timed
+
+    def close(self) -> list:
+        self.ped.prepare_batch = self.orig
+        return self.s
+
+
+def _pipeline():
+    from cometbft_tpu_torch.ingest import IngestPipeline
+    from cometbft_tpu_torch.mempool import CListMempool
+    from cometbft_tpu_torch.pipeline.cache import SigCache
+    mp = CListMempool(_ingest_app(), size=INGEST_MEMPOOL)
+    return IngestPipeline(mp, cache=SigCache(), batch=True,
+                          coalesce_window_s=0.0, device="cuda"), mp
+
+
+def run_ingest(torch, pkg, seed: int, per_call: dict) -> dict:
+    """A burst of signed txs at the mempool's front door on the card:
+    `IngestPipeline(CListMempool(size=INGEST_MEMPOOL), batch=True,
+    coalesce_window_s=0, device="cuda")`, the whole mix submitted, then
+    one flush: every ticket's code as the mix made it (valid admitted,
+    tampered CODE_BAD_SIGNATURE, app-invalid the app's 2; duplicates
+    and malformed envelopes refused at submit, before any lane or app
+    call), the mempool's FIFO the valid txs in submission order, and
+    the flush one "kernel" batch of the 8,064 unique lanes. Then the
+    shed: a fresh pipeline, mempool and cache; the distinct valid
+    envelopes (the mix's and INGEST_SHED_EXTRA more) until IngestShed,
+    which must come at the 8,193rd and not before; a flush (profiled:
+    the card's idle share), and the retry admitted."""
+    from cometbft_tpu_torch.ingest import CODE_BAD_SIGNATURE, IngestShed
+    from cometbft_tpu_torch.mempool import tx_key
+    txs, extra, sign_s = ingest_mix(seed)
+    want = {"valid": ("code", 0), "tampered": ("code", CODE_BAD_SIGNATURE),
+            "app_invalid": ("code", 2), "duplicate": ("raised", "ValueError"),
+            "malformed": ("raised", "MalformedTx")}
+    pipe, mp = _pipeline()
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    tickets = []
+    for _kind, tx in txs:
+        try:
+            tickets.append(pipe.submit(tx))
+        except ValueError as e:
+            tickets.append(type(e).__name__)
+    submit_s = time.perf_counter() - t0
+    clock = PrepareClock(pkg["ped"])
+    try:
+        t0 = time.perf_counter()
+        width = pipe.flush()
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+    finally:
+        prep = clock.close()
+    got = [("raised", t) if isinstance(t, str) else
+           ("code", t.code) if t.error is None else
+           ("error", type(t.error).__name__) for t in tickets]
+    wrong = [i for i, ((kind, _), g) in enumerate(zip(txs, got))
+             if g != want[kind]]
+    fifo = [tx_key(tx) for kind, tx in txs if kind == "valid"]
+    st = pipe.stats()
+    out = {"txs": len(txs), "mix": dict(INGEST_MIX),
+           "mempool_size": INGEST_MEMPOOL, "sign_s": sign_s,
+           "submit_s": submit_s, "flush_s": flush_s, "lanes": width,
+           "lanes_per_s": width / flush_s, "prepare_batch_ms":
+           [x * 1e3 for x in prep], "wrong_codes": wrong[:10],
+           "fifo_ok": [tx_key(t) for t in mp.reap_max_txs(-1)] == fifo,
+           "lanes_by_backend": st["lanes_by_backend"],
+           "batches": st["batches"], "fallbacks": st["fallbacks"],
+           **count.read("ingest burst", want_flushes=1)}
+    lanes = INGEST_MIX["valid"] + INGEST_MIX["tampered"] + \
+        INGEST_MIX["app_invalid"]
+    if wrong or not out["fifo_ok"] or width != lanes or \
+            st["lanes_by_backend"] != {"kernel": lanes} or \
+            st["batches"] != 1 or st["fallbacks"] or out["per_lane"] != 1:
+        raise AssertionError(f"ingest burst: {out}")
+
+    pipe, mp = _pipeline()
+    valid = [tx for kind, tx in txs if kind == "valid"] + extra
+    shed_at = None
+    for i, tx in enumerate(valid):
+        try:
+            pipe.submit(tx)
+        except IngestShed:
+            shed_at = i + 1
+            break
+    count = FlushCount(torch, pkg, per_call)
+    launches, busy_us, pwall = _device_kernels(torch, pipe.flush)
+    out["shed"] = {"max_pending": pipe.max_pending, "shed_at": shed_at,
+                   "flush_s": pwall, "kernel_launches": launches,
+                   "device_busy_s": busy_us / 1e6,
+                   "idle_share": 1 - busy_us / 1e6 / pwall,
+                   **count.read("ingest shed flush", want_flushes=1)}
+    retry = pipe.submit(valid[shed_at - 1])
+    pipe.flush()
+    out["shed"]["retry_code"] = retry.code
+    out["shed"]["admitted"] = mp.size()
+    if shed_at != pipe.max_pending + 1 or retry.code != 0 or \
+            mp.size() != shed_at or pipe.stats()["fallbacks"]:
+        raise AssertionError(f"ingest shed: {out['shed']}")
+    return out
+
+
+def print_ingest(ing: dict, gpu: str) -> None:
+    sh = ing["shed"]
+    print(f"tx admission burst: {ing['txs']} txs {ing['mix']} into a "
+          f"mempool of {ing['mempool_size']}, signed in {ing['sign_s']:.1f}"
+          f" s, submitted in {ing['submit_s']:.3f} s; one flush of "
+          f"{ing['lanes']} lanes ({ing['lanes_by_backend']}) in "
+          f"{ing['flush_s']:.3f} s ({ing['lanes_per_s']:.1f} lanes/s; "
+          f"prepare_batch {', '.join(f'{x:.1f}' for x in ing['prepare_batch_ms'])}"
+          f" ms; attributed per lane); every code as made, FIFO kept; shed "
+          f"at {sh['shed_at']} of max_pending {sh['max_pending']}, its "
+          f"flush {sh['flush_s']:.3f} s profiled (card idle "
+          f"{sh['idle_share']:.3f}), retry code {sh['retry_code']}; RLC "
+          f"launches {ing['launches']}; {gpu}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -3115,19 +3681,18 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
     print(f"gpu: {gpu}", flush=True)
 
-    # phase 2: the chain, from --seed, and the seam's tile
-    t0 = time.perf_counter()
-    chain, gen_app = make_chain(args.seed, BLOCKS)
-    gen_s = time.perf_counter() - t0
-    tile, marshal_s = tile_from_chain(ref, chain, LANES)
-    print(f"chain: {BLOCKS} blocks x {VALIDATORS} validators, "
-          f"{gen_s:.1f}s to generate; tile: its first {LANES} lanes",
-          flush=True)
+    # phase 2: the chains, from --seed, and the seam's tile
     t0 = time.perf_counter()
     pipe_chain, pipe_app = make_chain(args.seed, PIPE_BLOCKS)
     pipe_gen_s = time.perf_counter() - t0
     print(f"pipeline chain: {PIPE_BLOCKS} blocks x {VALIDATORS} validators, "
           f"{pipe_gen_s:.1f}s to generate", flush=True)
+    t0 = time.perf_counter()
+    chain, gen_app = chain_prefix(pipe_chain, BLOCKS)
+    gen_s = time.perf_counter() - t0
+    tile, marshal_s = tile_from_chain(ref, chain, LANES)
+    print(f"chain: its first {BLOCKS} blocks, the generator's app replayed "
+          f"in {gen_s:.1f}s; tile: their first {LANES} lanes", flush=True)
 
     # phase 3: kernels against their plain versions
     report: dict = {}
@@ -3221,8 +3786,20 @@ def main(argv=None) -> int:
           f"launches {mixed['launches']}; "
           f"host ms a signature {mixed['host_ms']}", flush=True)
 
-    aggsig = run_aggsig(torch, args.seed)
+    aggsig, agg_chain, agg_app = run_aggsig(torch, args.seed)
     print_aggsig(aggsig, gpu)
+    t0 = time.perf_counter()
+    seal = run_sealsync(torch, agg_chain, agg_app, args.seed)
+    seal["pass_s"] = time.perf_counter() - t0
+    print_sealsync(seal, gpu)
+    t0 = time.perf_counter()
+    farm = run_farm(torch, pkg, chain, light, per_call)
+    farm["pass_s"] = time.perf_counter() - t0
+    print_farm(farm, gpu)
+    t0 = time.perf_counter()
+    ingest = run_ingest(torch, pkg, args.seed, per_call)
+    ingest["pass_s"] = time.perf_counter() - t0
+    print_ingest(ingest, gpu)
 
     cv.reset_launches()
     run_pt_add_ab(torch, pkg, add_args, report)
@@ -3249,6 +3826,10 @@ def main(argv=None) -> int:
             "launches_server_sync": server["sync"]["launches"][name],
             "launches_light_client": light["launches"][name],
             "launches_mixed_set": mixed["launches"][name],
+            "launches_farm": farm["launches"][name] +
+            farm["forged"]["launches"][name],
+            "launches_ingest": ingest["launches"][name] +
+            ingest["shed"]["launches"][name],
             **{k: r[k] for k in ("launches_per_call",
                                  "launches_per_call_profiled", "lanes", "m")
                if k in r}}
@@ -3268,7 +3849,7 @@ def main(argv=None) -> int:
         if name == "pt_add_tiled":
             row["launches"] = ab[name]      # its own phase: the A/B
         kernels.append(row)
-    kernels += bls_kernel_rows(report, aggsig)
+    kernels += bls_kernel_rows(report, aggsig, seal)
     for fig in (sync, bad):
         fig["verify_s"] = fig["span_s"].get("blocksync.verify", 0.0)
         fig["fetch_s"] = fig["span_s"].get("blocksync.fetch", 0.0)
@@ -3282,6 +3863,7 @@ def main(argv=None) -> int:
                       "tampered_r_decodes": r_decodes},
         "pipeline": pipe, "device_server": server,
         "light_client": light, "mixed_set": mixed, "aggsig": aggsig,
+        "sealsync": seal, "farm": farm, "ingest": ingest,
         "bls_kernels": {k: report[k] for k in BLS_KERNELS},
         "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,

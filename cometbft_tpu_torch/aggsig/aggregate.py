@@ -21,9 +21,10 @@ accepted aggregate.
 
 Port of `cometbft_tpu/aggsig/aggregate.py`. One difference: the JAX
 package takes the PoP kernel route when its compile ledger says the
-fused Miller kernel is warm at the batch's bucket; the port asks
-`ops/bls12.launched`, its record of the (kernel, bucket) pairs this
-process launched on the card.
+fused Miller kernel is warm at the batch's bucket (a stand-in for minutes
+of jit); the port routes by device, as the farm does: the kernel route
+whenever the pairing checker it would use is on cuda, the host route on
+the CPU (`register_pops_batch(device=)`).
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ import hashlib
 import threading
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import torch
+
 from ..crypto import bls12381 as bls
+from ..device import resolve_device
 
 # Domain separation for proofs of possession: a PoP must never be
 # confusable with a consensus signature, so the signed message is a
@@ -157,23 +161,23 @@ def register_pop(pub_bytes: bytes, pop: bytes, metrics=None) -> bool:
     return ok
 
 
-def _kernel_pop_check(pending, metrics=None):
-    """PoP admission through the fused pairing kernel: each key is one
-    2-pair item (e(-g1, s_pop)·e(pk, H(msg)) == 1 — the kernel's
-    native shape), so per-key verdicts are exact with NO
-    random-linear-combination round and no per-failure fallback.
-    Returns all_ok, or None when the shared checker is not on the card
-    or `bls_miller_finalexp` has not launched at this batch's bucket in
-    this process — genesis and state-reload re-admission always lands on
-    the RLC path because nothing has launched at boot."""
-    from ..ops.bls12 import bucket_for, launched
-    # +2: the checker splices its canary items into the batch
-    if not launched("bls_miller_finalexp", bucket_for(len(pending) + 2)):
-        return None
+def _pop_device(device) -> torch.device:
+    """The device whose route admits PoPs: the caller's, else the card
+    when one is present. Without a card no pairing checker can run on
+    cuda, and the host route is the only route."""
+    if device is not None:
+        return resolve_device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _kernel_pop_check(pending, device, metrics=None):
+    """PoP admission through the fused pairing kernel on `device`'s
+    shared checker: each key is one 2-pair item (e(-g1, s_pop)·e(pk,
+    H(msg)) == 1 — the kernel's native shape), so per-key verdicts are
+    exact with NO random-linear-combination round and no per-failure
+    fallback. Returns all_ok. A kernel error or a wrong canary raises."""
     from .verify import shared_pairing
-    pc = shared_pairing()
-    if pc.device.type != "cuda":
-        return None
+    pc = shared_pairing(device)
     items = []
     lanes: List[bytes] = []
     all_ok = True
@@ -206,24 +210,24 @@ def _kernel_pop_check(pending, metrics=None):
     return all_ok
 
 
-def register_pops_batch(pops: Dict[bytes, bytes], metrics=None) -> bool:
+def register_pops_batch(pops: Dict[bytes, bytes], metrics=None,
+                        device=None) -> bool:
     """Verify + record many proofs of possession in one batch —
     genesis admission of an n-validator BLS set costs ~1 Miller loop
     per key plus shared final exponentiation work instead of n full
-    verifies. When the shared PairingChecker is on the card and its
-    Miller kernel has launched at this batch's bucket in this process,
-    each key rides the fused device call as its own exact 2-pairing
-    lane; otherwise (always at genesis/state-reload boot, where nothing
-    has launched) the random-linear-combination multi-pairing
-    (BlsBatchVerifier) runs host-side. Per-key verdicts are exact on
-    both routes; returns True iff every PoP verified."""
+    verifies. On cuda (`device`, default the card when one is present)
+    each key rides the shared PairingChecker's fused kernel as its own
+    exact 2-pairing lane, cold process or not; on the CPU the
+    random-linear-combination multi-pairing (BlsBatchVerifier) runs
+    host-side. Per-key verdicts are exact on both routes; returns True
+    iff every PoP verified."""
     pending = [(pub, pop) for pub, pop in pops.items()
                if not has_pop(pub)]
     if not pending:
         return True
-    kernel_out = _kernel_pop_check(pending, metrics=metrics)
-    if kernel_out is not None:
-        return kernel_out
+    dev = _pop_device(device)
+    if dev.type == "cuda":
+        return _kernel_pop_check(pending, dev, metrics=metrics)
     bv = BlsBatchVerifier()
     lanes: List[bytes] = []
     all_ok = True

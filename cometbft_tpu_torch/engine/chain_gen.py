@@ -12,8 +12,8 @@ equation through `aggsig`'s kernels). `ChainLightProvider` serves the
 chain to the light client. Validators sign with ed25519 or BLS keys, as
 in the JAX package: a mixed-curve set is built by hand and its commits
 signed with `sign_commit`, which takes any key type.
-`ChainSealSource.fetch_seals` needs `sealsync/`, which is not ported yet
-(ROADMAP.md Queue 1 item 7: sealsync), and raises.
+`ChainSealSource` serves the chain's aggregated seals to
+`sealsync.SealAdopter`.
 """
 
 from __future__ import annotations
@@ -219,11 +219,20 @@ class LocalChainSource:
 
 
 class ChainSealSource:
-    """sealsync.SealSource over a generated chain (the JAX package's
-    in-memory seal provider, whose forgeries are `_forge_seal`'s modes,
-    served at `corrupt_heights` until ban()). `fetch_seals` needs
-    `sealsync/`, which the port does not carry yet, and raises naming
-    its ROADMAP.md item."""
+    """sealsync.SealSource over a generated chain — the in-memory seal
+    provider for tests and the chip smoke's seal-sync phase. Corrupt
+    modes:
+
+      "sig"     flip a byte of the tip seal's aggregate signature
+                (structural/point-level rejection at marshal)
+      "bitmap"  deep forgery: aggregate only n-1 real signatures but
+                keep the full-coverage bitmap — structure-valid,
+                voting-power tally passes, the PAIRING is what rejects
+
+    Forgeries are only served at heights in `corrupt_heights` (serve
+    the tip: interior forgeries are caught earlier and cheaper by the
+    host hash-chain binding). ban() clears corruption, modeling the
+    retry landing on the honest peer."""
 
     def __init__(self, chain: GeneratedChain,
                  corrupt_heights: Dict[int, str] | None = None):
@@ -235,13 +244,42 @@ class ChainSealSource:
         return self.chain.max_height()
 
     def fetch_seals(self, start: int, count: int):
-        raise NotImplementedError(
-            "seal sync is not ported yet (ROADMAP.md Queue 1 item 7: "
-            "sealsync)")
+        from ..sealsync.chain import SealTuple
+        from ..types.agg_commit import AggregatedCommit
+        out = []
+        for h in range(start, min(start + count,
+                                  self.chain.max_height() + 1)):
+            commit = self.chain.seen_commits[h - 1]
+            if not isinstance(commit, AggregatedCommit):
+                break
+            if h in self.corrupt:
+                commit = _forge_seal(self.chain, commit,
+                                     self.corrupt[h])
+            header = self.chain.blocks[h - 1].header
+            valset = None
+            pops: Dict[bytes, bytes] = {}
+            if h > 1 and header.validators_hash != \
+                    self.chain.blocks[h - 2].header.validators_hash:
+                valset = self.chain.valsets[h - 1].copy()
+                pops = _valset_pops(self.chain, valset)
+            out.append(SealTuple(h, header, commit, valset, pops))
+        return out
 
     def ban(self, height: int) -> None:
         self.banned.append(height)
         self.corrupt.clear()
+
+
+def _valset_pops(chain: GeneratedChain, valset) -> Dict[bytes, bytes]:
+    from ..aggsig.aggregate import pop_prove
+    pops: Dict[bytes, bytes] = {}
+    for v in valset.validators:
+        if v.pub_key.type_() != "bls12_381":
+            continue
+        priv = chain.keys.get(v.address)
+        if priv is not None:
+            pops[v.pub_key.bytes_()] = pop_prove(priv)
+    return pops
 
 
 def _forge_seal(chain: GeneratedChain, commit, mode: str):

@@ -23,10 +23,7 @@ the JAX package.
 Dispatch is by the tensor's device, as in `cuda_verify.py`: a CPU tensor
 runs the plain torch version (`bls_hard_pow_plain`,
 `bls_miller_finalexp_plain`), a CUDA tensor launches the kernel or
-raises. `LAUNCHES` counts the launches; `launched(kernel, bucket)` says
-whether this process launched a kernel at a bucket (the JAX package asks
-its compile ledger the same question before it takes the PoP kernel
-route, `aggsig/aggregate._kernel_pop_check`).
+raises. `LAUNCHES` counts the launches.
 
 The plain versions compute what the JAX functions compute, with another
 inner form: an Fq element is 16 int64 limbs of 24 bits (the Montgomery
@@ -75,10 +72,9 @@ _GAMMA2 = tuple(f2_pow(XI, i * (P_INT * P_INT - 1) // 6) for i in range(6))
 assert all(g[1] == 0 for g in _GAMMA2)
 
 
-# --- launch counts and the launched-bucket record ----------------------------
+# --- launch counts -------------------------------------------------------------
 
 LAUNCHES = {"bls_hard_pow": 0, "bls_miller_finalexp": 0}
-_LAUNCHED: set = set()       # (kernel, bucket) launched in this process
 _launches_lock = threading.Lock()
 
 
@@ -88,24 +84,9 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def _count(name: str, bucket: int) -> None:
+def _count(name: str) -> None:
     with _launches_lock:
         LAUNCHES[name] += 1
-        _LAUNCHED.add((name, bucket))
-
-
-def reset_launched() -> None:
-    """Forget the launched (kernel, bucket) pairs: the process is cold
-    again for the PoP kernel route (tests, and chip_smoke.py's cold
-    genesis admission)."""
-    with _launches_lock:
-        _LAUNCHED.clear()
-
-
-def launched(name: str, bucket: int) -> bool:
-    """True once this process has launched kernel `name` at `bucket`."""
-    with _launches_lock:
-        return (name, bucket) in _LAUNCHED
 
 
 # --- host limbs ---------------------------------------------------------------
@@ -575,7 +556,7 @@ def bls_hard_pow(arr: torch.Tensor, bits: torch.Tensor):
     if b:
         _launch("bls_hard_pow", arr.data_ptr(), bits.data_ptr(),
                 bits.shape[0], out.data_ptr(), ok.data_ptr(), b)
-        _count("bls_hard_pow", b)
+        _count("bls_hard_pow")
     return out, ok
 
 
@@ -604,7 +585,7 @@ def bls_miller_finalexp(lines: torch.Tensor, bits: torch.Tensor):
     if b:
         _launch("bls_miller_finalexp", lines.data_ptr(), bits.data_ptr(),
                 bits.shape[0], out.data_ptr(), ok.data_ptr(), b)
-        _count("bls_miller_finalexp", b)
+        _count("bls_miller_finalexp")
     return out, ok
 
 

@@ -11,9 +11,9 @@ pure-Python host oracle.
 
 Mirrors tests/test_aggsig.py: the bitmap codec, aggregate = sum of
 signatures, PoP round trip and forgery, the rogue-key attack stopped
-exactly by the PoP gate, `register_pops_batch` attribution (host route,
-and the kernel route once `bls_miller_finalexp` has launched at the
-batch's bucket), the wire form (the port's `AggregatedCommit.encode()`
+exactly by the PoP gate, `register_pops_batch` attribution (the host
+route on the CPU, the kernel route whenever the pairing checker is on
+cuda), the wire form (the port's `AggregatedCommit.encode()`
 bytes are the JAX package's, and `Commit.decode` gives an
 `AggregatedCommit`), the `validate_basic` rejections, the assembly gate,
 clean and tampered verdicts with the same exception classes (the
@@ -225,11 +225,11 @@ def test_register_pops_batch_attribution():
 
 
 def test_register_pops_batch_kernel_route(monkeypatch):
-    """Once `bls_miller_finalexp` has launched at the batch's bucket on a
-    card, PoPs ride the fused kernel as exact per-key 2-pair lanes (3
-    decompressible lanes + 2 canaries); before that, and on the CPU,
-    the host RLC route admits them. The card is stood in for by a
-    checker whose device reads cuda and a host-honest kernel entry."""
+    """With the pairing checker on cuda, PoPs ride the fused kernel as
+    exact per-key 2-pair lanes (3 decompressible lanes + 2 canaries),
+    from a cold process; on the CPU the host RLC route admits them. The
+    card is stood in for by `torch.cuda.is_available`, a checker whose
+    device reads cuda and a host-honest kernel entry."""
     keys = [pbls.Bls12381PrivKey.generate(seed=b"pop-kernel-%d" % i)
             for i in range(3)]
     pubs = [k.pub_key().bytes_() for k in keys]
@@ -247,19 +247,23 @@ def test_register_pops_batch_kernel_route(monkeypatch):
     pc = paggv.PairingChecker(device="cpu")
     pc.device = torch.device("cuda")
     monkeypatch.setattr(pb, "miller_finalexp_is_one_batch", honest)
-    monkeypatch.setattr(paggv, "shared_pairing", lambda device=None: pc)
+    checked_on = []
+
+    def shared(device=None):
+        checked_on.append(torch.device(device))
+        return pc
+    monkeypatch.setattr(paggv, "shared_pairing", shared)
     saved = dict(pagg._POP_OK)
     try:
         pagg.reset_pop_registry()
-        assert pagg.register_pops_batch(dict(pops)) is False
-        assert batches == []                     # nothing launched: RLC
+        assert pagg.register_pops_batch(dict(pops), device="cpu") is False
+        assert batches == [] and checked_on == []    # the CPU: host RLC
         assert [pagg.has_pop(p) for p in pubs] == [True, True, False]
         pagg.reset_pop_registry()
-        monkeypatch.setattr(pb, "launched",
-                            lambda name, bucket: (name, bucket) ==
-                            ("bls_miller_finalexp", 16))
+        monkeypatch.setattr(pagg.torch.cuda, "is_available", lambda: True)
         assert pagg.register_pops_batch(dict(pops)) is False
-        assert batches == [5]
+        assert batches == [5]                        # cold, on the card
+        assert checked_on == [torch.device("cuda")]
         assert [pagg.has_pop(p) for p in pubs] == [True, True, False]
         assert pagg.register_pops_batch({pubs[0]: pops[pubs[0]]}) is True
         assert batches == [5]                    # nothing re-verified
@@ -409,8 +413,7 @@ def test_mixed_batch_routes_bls():
 
 def test_genesis_pops_through_state(plain):
     """State.from_genesis registers the genesis PoPs (the host RLC route:
-    nothing has launched), and a bad PoP stays unregistered, on both
-    sides."""
+    no card here), and a bad PoP stays unregistered, on both sides."""
     got = {}
     for side, s in SIDES.items():
         gen = plain[side][0].genesis

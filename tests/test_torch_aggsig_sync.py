@@ -20,7 +20,8 @@ CPU, from the same seed.
 - A sequential light client trusted at height 1 verifies height 2 (its
   aggregated commit through the plain fused kernel) to the JAX package's
   header and trusted heights.
-- The seal source's forged seals equal the JAX package's byte for byte.
+- The seal source's forged seals, and the seal tuples it serves, equal
+  the JAX package's byte for byte.
 - No fallback: a wrapper that raises, and a plain version that answers a
   canary wrong (KernelCanaryError), propagate out of `sync` at depth 1
   and 2.
@@ -202,19 +203,25 @@ def test_light_client_over_aggregated_chain(chains, miller_calls):
 @pytest.mark.parametrize("mode", ["sig", "bitmap"])
 def test_forged_seals_match_jax(chains, mode):
     """The seal source's forgeries (`_forge_seal`) byte for byte with the
-    JAX package's; the port's seal source raises until sealsync is
-    ported, and a ban clears its corruption as the JAX package's does."""
+    JAX package's; the port's seal source serves them at the corrupt
+    height as the JAX package's does (`fetch_seals`, the seal tuples byte
+    for byte), and a ban clears its corruption."""
     jchain, pchain = chains
     got = pcg._forge_seal(pchain, pchain.seen_commits[1], mode)
     assert got.encode() == jcg._forge_seal(
         jchain, jchain.seen_commits[1], mode).encode()
     assert got.agg_sig != pchain.seen_commits[1].agg_sig
     src = pcg.ChainSealSource(pchain, {2: mode})
+    jsrc = jcg.ChainSealSource(jchain, {2: mode})
     assert src.max_height() == 2
-    with pytest.raises(NotImplementedError, match="sealsync"):
-        src.fetch_seals(1, 2)
+    served = src.fetch_seals(1, 2)
+    assert [t.encode() for t in served] == \
+        [t.encode() for t in jsrc.fetch_seals(1, 2)]
+    assert served[1].commit.encode() == got.encode()
     src.ban(2)
     assert src.banned == [2] and src.corrupt == {}
+    assert src.fetch_seals(2, 1)[0].commit.encode() == \
+        pchain.seen_commits[1].encode()
 
 
 @pytest.mark.parametrize("depth", [1, 2])

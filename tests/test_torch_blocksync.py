@@ -30,10 +30,11 @@ the host modules under it) held against the JAX package's, on the CPU.
   mixed-set commits gives the JAX package's per-commit verdicts (the
   mixed commits decided at marshal as `AggSeal` "ok" and "fail" on both
   sides).
-- Unported branches (mesh, seal sync) raise NotImplementedError, and the
-  aggsig branches answer: BLS genesis keys with their PoPs, and
-  `Commit.decode` of the aggregated wire form; device="cuda" raises
-  without a card.
+- Mesh routing, still unported, raises NotImplementedError; the seal
+  source serves no seal from a chain of per-signature commits, as the
+  JAX package's does; the aggsig branches answer: BLS genesis keys with
+  their PoPs, and `Commit.decode` of the aggregated wire form;
+  device="cuda" raises without a card.
 """
 
 import dataclasses
@@ -346,7 +347,7 @@ def test_mixed_verify_tile_matches_jax(chains, mixed):
 
 
 def test_unported_branches_raise(chains, monkeypatch):
-    _, pchain = chains["main"]
+    jchain, pchain = chains["main"]
     # mesh routing: only where the JAX package would take it, the
     # variable exactly "1" on a host with more than one card
     monkeypatch.setenv("COMETBFT_TPU_MESH_VERIFY", "1")
@@ -354,9 +355,10 @@ def test_unported_branches_raise(chains, monkeypatch):
     with pytest.raises(NotImplementedError):
         pbs.verify_lanes([b"\x00" * 32] * 64, [b""] * 64, [b"\x00" * 64] * 64,
                          BATCH, device="cpu")
-    # seal sync over a chain needs sealsync/, not ported yet
-    with pytest.raises(NotImplementedError, match="sealsync"):
-        pcg.ChainSealSource(pchain).fetch_seals(1, 1)
+    # seal sync is ported: a chain of per-signature commits has no seal
+    # to serve, in either package
+    assert pcg.ChainSealSource(pchain).fetch_seals(1, 1) == [] == \
+        jcg.ChainSealSource(jchain).fetch_seals(1, 1)
     # BLS genesis keys come with their proofs of possession, as in the
     # JAX package (the same seeded keys and PoP bytes)
     gen, keys = pcg.make_genesis(2, key_type="bls12_381")
