@@ -6,10 +6,13 @@ Usage (from the root of a checkout, on a machine with a CUDA card):
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --bls-cycles
+    python3 chip_smoke.py --serve-peer DIR
 
 `--bls-cycles` runs no phase below: it builds BLS_MICRO_CU alone and
 prints one JSON line of clock64 cycles of the BLS kernels' pieces (where
 one lane's time goes), and the card's name and power limit.
+`--serve-peer DIR` is the p2p phase's child process: it serves the
+FileDB block stores under DIR over TCP on the CPU (`serve_peer`).
 
 
 Phases; any failure exits non-zero:
@@ -17,8 +20,10 @@ Phases; any failure exits non-zero:
    per source, all started together), and beside them the one-thread
    yardstick kernels of ONE_THREAD_CU (the parent's decompression and
    addition, from the same fe25519.cuh) and the BLS kernels' previous
-   design, BLS_PREV_CU; print the build seconds, the registers and spills
-   ptxas reports, and the card's name and power limit.
+   design, BLS_PREV_CU; then the host C++ sources (csrc/host: the native
+   log DB and the p2p link's ChaCha20-Poly1305) with g++; print the
+   build seconds, the registers and spills ptxas reports, and the card's
+   name and power limit.
 2. Generate the pipeline's chain from --seed: 121 blocks of a
    200-validator set, 2 txs a block, through the real executor on the
    card (`engine/chain_gen.generate_chain`, as `bench.py:154` sizes
@@ -179,6 +184,26 @@ Phases; any failure exits non-zero:
      of 8,064 lanes (attributed per lane); then 8,193 distinct valid
      envelopes into a fresh pipeline: IngestShed at the 8,193rd, a
      profiled flush (the card's idle share), the retry admitted;
+   - catch-up over p2p into FileDB stores (`run_p2p`, node.py:591-701's
+     path without statesync, consensus and the handshake replay): the
+     121-block chain and the 63-block aggregated chain written into
+     FileDB block stores through `BlockStore.save_block` (NativeDB opens
+     the first and sees the same keys), served by a child process
+     (`--serve-peer`, CUDA hidden) on loopback TCP, each on its own
+     Switch; this process syncs the 121 blocks through
+     `PooledSource(NetSource(reactor, switch), lookahead=32, n_workers=4)`
+     and `BlocksyncReactor` (tile 40, batch 8192, a fresh SigCache, the
+     watchdog and supervisor) into fresh FileDB stores at depth 1, 2 and
+     1 profiled, each to the generator's app hash with no trip, drain or
+     canary failure and every RLC kernel launched; then to height 60,
+     stop, close, reopen (FileDB replay), `run_doctor` (no repair), the
+     state from the StateStore at the kept app's height, and a resume
+     over a new connection to 121; then `SealAdopter` over
+     `NetSealSource` at the defaults (one `bls_miller_finalexp` launch)
+     and `max_skip=1` (63 pivots, two launches). It prints walls, sigs/s,
+     the bytes each way, the handshake, AEAD, decode and fetch-wait
+     seconds, the store write, reopen and doctor figures and the
+     peer's own AEAD figures;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
@@ -190,8 +215,9 @@ Phases; any failure exits non-zero:
    pipelined syncs, of the device server's paths, of the light client,
    of the mixed set, of the farm and of tx admission; the BLS kernels'
    rows with the launches of their own paths, the aggregated catch-up
-   and the multi-group `verify_commit`, and of seal sync's passes), a
-   timing line with the catch-up sigs/s and
+   and the multi-group `verify_commit`, and of seal sync's passes; the
+   p2p phase's launches of each), a timing line with the catch-up
+   sigs/s and
    where the sync's time goes, the pipelined depths' medians and
    spreads, the server's stats, the light client's headers/s and the
    mixed set's pass times, the card's name and power limit, and last
@@ -3082,12 +3108,13 @@ def print_aggsig(aggsig: dict, gpu: str) -> None:
           f"{aggsig['sync_pass_s']:.1f} s; {gpu}", flush=True)
 
 
-def bls_kernel_rows(report: dict, aggsig: dict, seal: dict) -> list:
+def bls_kernel_rows(report: dict, aggsig: dict, seal: dict,
+                    p2p: dict) -> list:
     """The kernels line's rows of the two BLS kernels: launches from each
     kernel's own path (the aggregated catch-up for the fused kernel, the
     multi-group verify_commit for the hard chain), times and bounds at
-    bucket 64, and every bucket and path beside them (seal sync's passes
-    among them)."""
+    bucket 64, and every bucket and path beside them (seal sync's passes,
+    in memory and over p2p, among them)."""
     gs, cm, sy = aggsig["genesis"], aggsig["commits"], aggsig["sync"]
     rows = []
     paths = {"bls_miller_finalexp": ("aggregated catch-up",
@@ -3132,7 +3159,9 @@ def bls_kernel_rows(report: dict, aggsig: dict, seal: dict) -> list:
                                  for k, f in sy.items()},
             "launches_sealsync": {
                 k: seal[k]["launches"][name] for k in
-                ("default", "max_skip_1", "forged", "backfill")}})
+                ("default", "max_skip_1", "forged", "backfill")},
+            "launches_p2p_sealsync": {
+                k: f["launches"][name] for k, f in p2p["seal"].items()}})
     return rows
 
 
@@ -3146,11 +3175,12 @@ def _span_s(spans) -> dict:
     return out
 
 
-def _seal_pass(torch, chain, seed: int, forge=None, **kw) -> tuple:
+def _seal_pass(torch, chain, seed: int, forge=None, source=None,
+               **kw) -> tuple:
     """One `SealAdopter.adopt` from genesis over the aggregated chain on
     the card, into a fresh store and signature cache (`kw`: max_skip,
     tile_size; `forge`: the seal source's forgery at the tip until a
-    ban). Every PairingChecker call with pending work is one
+    ban; `source`: the seal source, default the in-memory one). Every PairingChecker call with pending work is one
     `bls_miller_finalexp` launch, timed with CUDA events (KernelClock).
     -> (figures, store, cache)."""
     from cometbft_tpu_torch import trace
@@ -3165,7 +3195,7 @@ def _seal_pass(torch, chain, seed: int, forge=None, **kw) -> tuple:
     from cometbft_tpu_torch.state.state import State
     from cometbft_tpu_torch.store.blockstore import BlockStore
     top = chain.max_height()
-    src = ChainSealSource(chain, {top: forge} if forge else {})
+    src = source or ChainSealSource(chain, {top: forge} if forge else {})
     store, cache = BlockStore(MemDB()), SigCache()
     metrics = SealsyncMetrics(Registry())
     adopter = SealAdopter(chain.chain_id, store, src, cache=cache,
@@ -3196,7 +3226,7 @@ def _seal_pass(torch, chain, seed: int, forge=None, **kw) -> tuple:
            "pairings_skipped": int(metrics.pairings_skipped.value()),
            "seals_adopted": int(metrics.seals_adopted.value()),
            "adoptions_rejected": int(metrics.adoptions_rejected.value()),
-           "banned": list(src.banned), "wall_s": wall,
+           "banned": list(getattr(src, "banned", [])), "wall_s": wall,
            "launches": launches, "checker_calls": dict(counter.calls),
            "kernel_ms_by_bucket": [(b, ms) for _n, b, ms in marks],
            "device_busy_s": busy, "idle_share": 1 - busy / wall,
@@ -3624,6 +3654,527 @@ def print_ingest(ing: dict, gpu: str) -> None:
           f"launches {ing['launches']}; {gpu}", flush=True)
 
 
+# --- catch-up over p2p into FileDB stores (slice 11) --------------------------
+
+P2P_RESTART_AT = 60   # the restart phase stops there, then resumes
+P2P_LOOKAHEAD = 32    # node.py:635-636 PooledSource(lookahead, n_workers)
+P2P_WORKERS = 4
+P2P_PEER_START_S = 300  # the serving peer must print its ports by then
+
+
+def _write_store(chain, d: str) -> float:
+    """The chain's blocks and seen commits into FileDB block store under
+    d, through BlockStore.save_block -> seconds."""
+    from cometbft_tpu_torch.db.kv import open_db
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    db = open_db("filedb", "blockstore", d)
+    t0 = time.perf_counter()
+    store = BlockStore(db)
+    for block, commit in zip(chain.blocks, chain.seen_commits):
+        store.save_block(block, block.make_part_set(), commit)
+    dt = time.perf_counter() - t0
+    db.close()
+    return dt
+
+
+def _native_open(chain, d: str) -> dict:
+    """NativeDB (csrc/host/kvlog.cc) opens the FileDB block store under d
+    (a v2 log) and sees what FileDB sees: the height and the tip."""
+    from cometbft_tpu_torch.db.kv import FileDB
+    from cometbft_tpu_torch.db.native import NativeDB
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    path = os.path.join(d, "blockstore.db")
+    t0 = time.perf_counter()
+    native = NativeDB(path)
+    open_s = time.perf_counter() - t0
+    try:
+        store = BlockStore(native)
+        top = chain.max_height()
+        if store.height() != top or \
+                store.load_block(top).hash() != chain.blocks[-1].hash():
+            raise AssertionError("NativeDB reads another block store than "
+                                 "FileDB wrote")
+        keys = len(native)
+    finally:
+        native.close()
+    db = FileDB(path)
+    try:
+        if len(list(db.iterate())) != keys:
+            raise AssertionError("NativeDB and FileDB see other key sets")
+    finally:
+        db.close()
+    return {"open_s": open_s, "keys": keys,
+            "bytes": os.path.getsize(path)}
+
+
+def serve_peer(d: str) -> int:
+    """`--serve-peer DIR`: the serving peer of the p2p phase, run in its
+    own process on the CPU (its caller hides the card). Each FileDB block
+    store under DIR (pipe/, agg/) is served on its own Switch (chain id =
+    network) through BlocksyncNetReactor, the aggregated one with a
+    SealProvider; prints one JSON line of {name: port}, serves until its
+    standard input closes, then prints one JSON line of its AEAD seconds
+    and frames and each Switch's P2PMetrics bytes."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.db.kv import open_db
+    from cometbft_tpu_torch.engine.reactor import BlocksyncNetReactor
+    from cometbft_tpu_torch.libs.metrics import Registry
+    from cometbft_tpu_torch.libs.metrics_gen import P2PMetrics
+    from cometbft_tpu_torch.p2p import conn
+    from cometbft_tpu_torch.p2p.switch import Switch
+    from cometbft_tpu_torch.sealsync import SealProvider
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    with open(os.path.join(d, "chains.json")) as f:
+        chains = json.load(f)
+    switches, dbs, ports = [], [], {}
+    try:
+        for name, chain_id in chains.items():
+            db = open_db("filedb", "blockstore", os.path.join(d, name))
+            dbs.append(db)
+            store = BlockStore(db)
+            sw = Switch(Ed25519PrivKey.generate(), chain_id, "peer-" + name)
+            sw.metrics = P2PMetrics(Registry())
+            sw.add_reactor(BlocksyncNetReactor(
+                store, seal_provider=SealProvider(store)
+                if name == "agg" else None))
+            switches.append(sw)
+            ports[name] = sw.listen()[1]
+        print(json.dumps({"ports": ports}), flush=True)
+        sys.stdin.read()
+        print(json.dumps({"aead": conn.AEAD_STATS, "bytes": {
+            name: {"sent": sw.metrics.message_send_bytes_total.value(
+                       ch_id="0x40"),
+                   "received": sw.metrics.message_receive_bytes_total.value(
+                       ch_id="0x40")}
+            for name, sw in zip(chains, switches)}}), flush=True)
+    finally:
+        for sw in switches:
+            sw.stop()
+        for db in dbs:
+            db.close()
+    return 0
+
+
+class ServingPeer:
+    """The child process of `serve_peer`, on the CPU: CUDA_VISIBLE_DEVICES
+    is empty, so it never initialises CUDA and its encoding and AEAD work
+    does not take this process's interpreter lock. Its stderr goes to a
+    file; `check` raises (with it) if the child has died."""
+
+    def __init__(self, d: str, chains: dict):
+        import selectors
+        with open(os.path.join(d, "chains.json"), "w") as f:
+            json.dump(chains, f)
+        self.err_path = os.path.join(d, "peer.stderr")
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        t0 = time.perf_counter()
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--serve-peer",
+                 d], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=err, text=True, env=env)
+        sel = selectors.DefaultSelector()
+        sel.register(self.proc.stdout, selectors.EVENT_READ)
+        ready = sel.select(timeout=P2P_PEER_START_S)
+        sel.close()
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            self.stop()
+            raise RuntimeError(f"the serving peer did not start: "
+                               f"{self._stderr()}")
+        self.ports = json.loads(line)["ports"]
+        self.start_s = time.perf_counter() - t0
+
+    def _stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()[-4000:]
+
+    def check(self) -> None:
+        if self.proc.poll() is not None:
+            raise RuntimeError(f"the serving peer exited "
+                               f"({self.proc.returncode}): {self._stderr()}")
+
+    def stop(self) -> dict:
+        """Close its input (it prints its figures and exits), kill it if
+        it has not exited within 30 s -> its figures, or {}."""
+        import selectors
+        figures = {}
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            sel = selectors.DefaultSelector()
+            sel.register(self.proc.stdout, selectors.EVENT_READ)
+            if sel.select(timeout=30):
+                line = self.proc.stdout.readline()
+                figures = json.loads(line) if line else {}
+            sel.close()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        for f in (self.proc.stdin, self.proc.stdout):
+            f.close()
+        return figures
+
+
+class P2PNode:
+    """The syncing node of the p2p phase, as node.py:591-701 wires its
+    catch-up: FileDB stores for BlockStore and StateStore under d, the
+    kept kvstore `app`, an executor on the card, and a Switch (with
+    P2PMetrics) carrying BlocksyncNetReactor, dialled to the peer
+    (`handshake_ms`: TCP connect, SecretConnection handshake and the
+    NodeInfo exchange)."""
+
+    def __init__(self, chain, d: str, port: int, app=None):
+        from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+        from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+        from cometbft_tpu_torch.db.kv import open_db
+        from cometbft_tpu_torch.engine.reactor import BlocksyncNetReactor
+        from cometbft_tpu_torch.libs.metrics import Registry
+        from cometbft_tpu_torch.libs.metrics_gen import P2PMetrics
+        from cometbft_tpu_torch.p2p.switch import Switch
+        from cometbft_tpu_torch.state.execution import BlockExecutor
+        from cometbft_tpu_torch.state.state import StateStore
+        from cometbft_tpu_torch.store.blockstore import BlockStore
+        self.dir = d
+        t0 = time.perf_counter()
+        self.bdb = open_db("filedb", "blockstore", d)
+        self.sdb = open_db("filedb", "state", d)
+        self.open_s = time.perf_counter() - t0
+        self.store, self.state_store = BlockStore(self.bdb), \
+            StateStore(self.sdb)
+        if app is None:
+            app = KVStoreApplication()
+            app.init_chain(chain.chain_id, 1, [], b"")
+        self.app = app
+        self.executor = BlockExecutor(app, state_store=self.state_store,
+                                      block_store=self.store, device="cuda")
+        self.switch = Switch(Ed25519PrivKey.generate(), chain.chain_id,
+                             "syncer")
+        self.switch.metrics = P2PMetrics(Registry())
+        self.net = BlocksyncNetReactor(self.store)
+        self.switch.add_reactor(self.net)
+        self.switch.listen()
+        t0 = time.perf_counter()
+        self.switch.dial("127.0.0.1", port)
+        self.handshake_ms = (time.perf_counter() - t0) * 1e3
+        deadline = time.monotonic() + 30
+        while not self.net._peer_status:
+            if time.monotonic() > deadline:
+                raise AssertionError("the peer answered no status request")
+            time.sleep(0.01)
+
+    def traffic(self) -> dict:
+        m = self.switch.metrics
+        return {"received_bytes": m.message_receive_bytes_total.value(
+                    ch_id="0x40"),
+                "sent_bytes": m.message_send_bytes_total.value(ch_id="0x40")}
+
+    def close(self) -> None:
+        if self.switch is not None:
+            self.switch.stop()
+            self.bdb.close()
+            self.sdb.close()
+            self.switch = None
+
+
+def _p2p_sync(torch, pkg, node: P2PNode, chain, state, depth: int, seed,
+              target=None, profile=False) -> tuple:
+    """One catch-up of `node` from `state` over p2p, through
+    `PooledSource(NetSource(reactor, switch))` and `BlocksyncReactor`
+    (tile 40, batch 8192, a fresh SigCache, the watchdog and the
+    supervisor with canaries, as the pipelined phase runs it) on the
+    card. -> (state, figures): wall, sigs/s, span seconds (fetch is the
+    wait on the pool), AEAD seconds and frames, Block.decode seconds,
+    the peer's bytes, and the RLC launches (zeroed just before, read
+    just after). `profile` runs it under torch.profiler (idle share)."""
+    from cometbft_tpu_torch import trace
+    from cometbft_tpu_torch.device.health import DeviceSupervisor
+    from cometbft_tpu_torch.engine.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.engine.pool import PooledSource
+    from cometbft_tpu_torch.engine.reactor import NetSource
+    from cometbft_tpu_torch.p2p import conn
+    from cometbft_tpu_torch.pipeline.cache import (SigCache,
+                                                   reset_shared_cache)
+    from cometbft_tpu_torch.pipeline.watchdog import DeviceWatchdog
+    ped, cv = pkg["ped"], pkg["cv"]
+    reset_shared_cache()
+    # the kernels warm before the pool starts fetching (a no-op once an
+    # earlier phase warmed them), so no sync fetches ahead of its wall
+    ped.prewarm_verify_kernels(LANES, device="cuda")
+    supervisor = DeviceSupervisor(canary=True)
+    watchdog = DeviceWatchdog(supervisor=supervisor)
+    stats0 = dict(ped.STATS)
+    aead0 = dict(conn.AEAD_STATS)
+    dec0 = (node.net.decode_s, node.net.blocks_decoded)
+    bytes0 = node.traffic()
+    h0 = state.last_block_height
+    out: dict = {}
+
+    def sync():
+        # the pool starts fetching as it is made: inside the wall
+        out["pooled"] = PooledSource(
+            NetSource(node.net, node.switch), h0 + 1,
+            lookahead=P2P_LOOKAHEAD, n_workers=P2P_WORKERS)
+        out["reactor"] = BlocksyncReactor(
+            node.executor, node.store, out["pooled"], chain.chain_id,
+            tile_size=TILE, batch_size=LANES, cache=SigCache(),
+            pipeline_depth=depth, watchdog=watchdog, supervisor=supervisor,
+            device="cuda")
+        out["state"] = out["reactor"].sync(state, target)
+
+    _, recorder = trace.enable(seed=seed)
+    try:
+        torch.cuda.synchronize()
+        cv.reset_launches()
+        if profile:
+            names: dict = {}
+            launches, busy_us, wall = _device_kernels(torch, sync, names)
+            out["profiled"] = {"kernel_launches": launches,
+                               "device_busy_s": busy_us / 1e6,
+                               "idle_share": 1 - busy_us / 1e6 / wall,
+                               "launches_by_kernel": {
+                                   k: sum(names.get(f, 0)
+                                          for f in _source_fns(k))
+                                   for k in KERNELS}}
+        else:
+            t0 = time.perf_counter()
+            sync()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counted = dict(cv.LAUNCHES)
+        spans = recorder.snapshot()
+    finally:
+        trace.disable()
+        if "pooled" in out:
+            out["pooled"].stop()
+    state, reactor = out["state"], out["reactor"]
+    if profile and any(out["profiled"]["launches_by_kernel"][k]
+                       != counted.get(k, 0) for k in KERNELS):
+        # the profile lost device events: its busy time undercounts
+        out["profiled"]["device_busy_s"] = None
+        out["profiled"]["idle_share"] = None
+    st = reactor.stats
+    bytes1 = node.traffic()
+    fig = {"depth": depth, "from": h0, "to": state.last_block_height,
+           "wall_s": wall, "sigs_verified": st.sigs_verified,
+           "sigs_per_s": st.sigs_verified / wall,
+           "tiles_flushed": st.tiles_flushed,
+           "respeculations": st.respeculations, "banned": [],
+           "rlc_pass": ped.STATS["rlc_pass"] - stats0["rlc_pass"],
+           "per_lane": ped.STATS["per_lane"] - stats0["per_lane"],
+           "launches": counted, "span_s": _span_s(spans),
+           "aead": {k: conn.AEAD_STATS[k] - aead0[k] for k in aead0},
+           "decode_s": node.net.decode_s - dec0[0],
+           "blocks_decoded": node.net.blocks_decoded - dec0[1],
+           "peer_sent_bytes": bytes1["received_bytes"]
+           - bytes0["received_bytes"],
+           "peer_received_bytes": bytes1["sent_bytes"] - bytes0["sent_bytes"],
+           **({"profiled": out["profiled"]} if profile else {})}
+    fig["fetch_wait_s"] = fig["span_s"].get(
+        "blocksync.fetch", 0.0) + fig["span_s"].get("pipeline.fetch", 0.0)
+    fig["guards"] = {
+        "watchdog_trips": watchdog.trips,
+        "watchdog_fallbacks": watchdog.fallbacks,
+        "supervisor": supervisor.state_name(),
+        "canary_failures": supervisor.canary_failures,
+        "quarantines": supervisor.quarantines,
+        "cpu_drains": sum(1 for sp in spans
+                          if sp["name"] == "pipeline.cpu_drain")}
+    g = fig["guards"]
+    if (g["watchdog_trips"] or g["watchdog_fallbacks"]
+            or g["supervisor"] != "healthy" or g["canary_failures"]
+            or g["quarantines"] or g["cpu_drains"] or fig["per_lane"]):
+        raise AssertionError(f"p2p sync, depth {depth}: a drain, trip, "
+                             f"canary failure or attributed flush: {fig}")
+    want = target or chain.max_height()
+    if state.last_block_height != want or node.store.height() != want or \
+            st.blocks_applied != want - h0:
+        raise AssertionError(f"p2p sync stopped at "
+                             f"{state.last_block_height}: {fig}")
+    _read_path(counted, f"p2p sync, depth {depth}, {h0} -> {want}",
+               ("pt_decompress_tiled", "rlc_window_sums", "rlc_epilogue"))
+    return state, fig
+
+
+def _check_final(state, node, chain, gen_app) -> None:
+    if state.app_hash != gen_app.last_app_hash or \
+            node.app.state != gen_app.state or \
+            state.last_block_id != chain.block_ids[-1] or \
+            node.store.load_block(chain.max_height()).hash() != \
+            chain.blocks[-1].hash():
+        raise AssertionError("the p2p sync did not reach the generator's "
+                             "app state and chain")
+
+
+def run_p2p(torch, pkg, chain, gen_app, agg_chain, seed: int) -> dict:
+    """The node's catch-up path over p2p into FileDB stores
+    (node.py:591-701 without statesync, consensus and the handshake
+    replay): the 121-block chain and the aggsig phase's 63-block
+    aggregated chain are written into FileDB block stores through
+    `BlockStore.save_block`, served by a child process (`serve_peer`) on
+    loopback TCP, each on its own Switch; this process syncs the 121
+    blocks at depth 1 and 2 (and once more at depth 1 under
+    torch.profiler) into fresh FileDB stores, each to the generator's
+    app hash; then the restart: to height 60 at depth 1, stop, close,
+    reopen (FileDB replays its logs), the recovery doctor (no repair),
+    the state from the StateStore at the kept app's height, and a resume
+    over a new connection with a fresh SigCache to 121; then
+    `SealAdopter` over `NetSealSource` against the aggregated chain at
+    the defaults (one pivot) and at max_skip 1 (63 pivots)."""
+    import shutil
+    import tempfile
+    from cometbft_tpu_torch.engine.reactor import NetSealSource
+    from cometbft_tpu_torch.p2p import conn
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.store.recovery import run_doctor
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_p2p_", dir=str(build))
+    out: dict = {"blocks": chain.max_height(), "agg_blocks":
+                 agg_chain.max_height(), "lookahead": P2P_LOOKAHEAD,
+                 "workers": P2P_WORKERS, "tile": TILE, "batch": LANES}
+    peer = None
+    nodes: list = []
+
+    def node(name, port, app=None):
+        nodes.append(P2PNode(chain if name != "seal" else agg_chain,
+                             os.path.join(d, name), port, app))
+        return nodes[-1]
+
+    try:
+        out["store_write_s"] = {
+            "pipe": _write_store(chain, os.path.join(d, "pipe")),
+            "agg": _write_store(agg_chain, os.path.join(d, "agg"))}
+        out["native_open"] = _native_open(chain,
+                                          os.path.join(d, "pipe"))
+        peer = ServingPeer(d, {"pipe": chain.chain_id,
+                               "agg": agg_chain.chain_id})
+        out["peer_start_s"] = peer.start_s
+        genesis = State.from_genesis(chain.genesis)
+        syncs: dict = {}
+        for name, depth, profile in (("depth_1", 1, False),
+                                     ("depth_2", 2, False),
+                                     ("profiled", 1, True)):
+            n = node(name, peer.ports["pipe"])
+            state, fig = _p2p_sync(torch, pkg, n, chain, genesis, depth,
+                                   seed, profile=profile)
+            _check_final(state, n, chain, gen_app)
+            fig["handshake_ms"] = n.handshake_ms
+            fig["store_height"] = n.store.height()
+            syncs[name] = fig
+            n.close()
+            peer.check()
+        out["syncs"] = syncs
+        # the restart
+        n = node("restart", peer.ports["pipe"])
+        state, first = _p2p_sync(torch, pkg, n, chain, genesis, 1, seed,
+                                 target=P2P_RESTART_AT)
+        app = n.app
+        n.close()
+        t0 = time.perf_counter()
+        n = node("restart", peer.ports["pipe"], app=app)
+        reopen_s = time.perf_counter() - t0
+        report = run_doctor(block_store=n.store, state_store=n.state_store,
+                            db_dir=n.dir)
+        stored = n.state_store.load()
+        if report.count() or stored.last_block_height != P2P_RESTART_AT \
+                or app.last_height != stored.last_block_height or \
+                report.block_height != P2P_RESTART_AT:
+            raise AssertionError(f"restart: doctor {report}, stored state "
+                                 f"{stored.last_block_height}, app "
+                                 f"{app.last_height}")
+        state, resumed = _p2p_sync(torch, pkg, n, chain, stored, 1, seed)
+        _check_final(state, n, chain, gen_app)
+        resumed["handshake_ms"] = n.handshake_ms
+        out["restart"] = {"first": first, "resumed": resumed,
+                          "reopen_s": reopen_s, "replay_s": n.open_s,
+                          "doctor": {"repairs": report.repairs,
+                                     "block_height": report.block_height,
+                                     "state_height": report.state_height,
+                                     "wal_end_height":
+                                     report.wal_end_height}}
+        n.close()
+        peer.check()
+        # seal sync over p2p
+        seal: dict = {}
+        for name, kw in (("default", {}), ("max_skip_1", {"max_skip": 1})):
+            n = node("seal", peer.ports["agg"])
+            aead0 = dict(conn.AEAD_STATS)
+            fig, _, _ = _seal_pass(torch, agg_chain, seed,
+                                   source=NetSealSource(n.net, n.switch),
+                                   **kw)
+            fig["aead"] = {k: conn.AEAD_STATS[k] - aead0[k] for k in aead0}
+            fig["handshake_ms"] = n.handshake_ms
+            fig["peer_sent_bytes"] = n.traffic()["received_bytes"]
+            seal[name] = fig
+            n.close()
+            shutil.rmtree(n.dir)
+            peer.check()
+        tiles = -(-agg_chain.max_height() // seal["max_skip_1"]["tile"])
+        for name, pivots, launches in (
+                ("default", 1, 1),
+                ("max_skip_1", agg_chain.max_height(), tiles)):
+            f = seal[name]
+            if f["pivots_settled"] != pivots or \
+                    f["launches"]["bls_miller_finalexp"] != launches:
+                raise AssertionError(f"seal sync over p2p, {name}: {f}")
+        out["seal"] = seal
+        peer.check()
+        for n in nodes:
+            n.close()
+        out["peer"] = peer.stop()
+        peer = None
+        if not out["peer"]:
+            raise AssertionError("the serving peer printed no figures")
+    finally:
+        for n in nodes:
+            n.close()
+        if peer is not None:
+            peer.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def print_p2p(p2p: dict, gpu: str) -> None:
+    for name, f in p2p["syncs"].items():
+        prof = f.get("profiled")
+        print(f"p2p catch-up ({name}): {p2p['blocks']} blocks from a "
+              f"child-process peer over loopback TCP into FileDB stores, "
+              f"depth {f['depth']}: {f['wall_s']:.3f} s, "
+              f"{f['sigs_per_s']:.1f} sigs/s ({f['sigs_verified']} sigs); "
+              f"handshake {f['handshake_ms']:.1f} ms; peer sent "
+              f"{f['peer_sent_bytes']:.0f} B, received "
+              f"{f['peer_received_bytes']:.0f} B; AEAD open "
+              f"{f['aead']['open_s']:.4f} s wall, "
+              f"{f['aead']['open_cpu_s']:.4f} s CPU "
+              f"({f['aead']['frames_opened']} frames); decode "
+              f"{f['decode_s']:.3f} s ({f['blocks_decoded']} blocks); "
+              f"fetch wait {f['fetch_wait_s']:.3f} s; RLC launches "
+              f"{f['launches']}"
+              + (f"; card idle {prof['idle_share']} of this profiled "
+                 f"sync" if prof else "") + f"; {gpu}", flush=True)
+    r = p2p["restart"]
+    print(f"p2p restart: to {r['first']['to']} in "
+          f"{r['first']['wall_s']:.3f} s, stores closed and reopened in "
+          f"{r['reopen_s']:.3f} s (FileDB replay {r['replay_s']:.3f} s), "
+          f"doctor {r['doctor']}, resumed to {r['resumed']['to']} in "
+          f"{r['resumed']['wall_s']:.3f} s (launches "
+          f"{r['resumed']['launches']}); peer's FileDB stores written in "
+          f"{p2p['store_write_s']} s (NativeDB opened the 121-block one: "
+          f"{p2p['native_open']}), peer up in {p2p['peer_start_s']:.1f} s;"
+          f" {gpu}", flush=True)
+    print(f"p2p serving peer (all of its syncs): {p2p['peer']}; {gpu}",
+          flush=True)
+    for name, f in p2p["seal"].items():
+        print(f"seal sync over p2p ({name}, max_skip {f['max_skip']}): tip "
+              f"{f['tip']}, {f['pivots_settled']} pivots, "
+              f"{f['launches']['bls_miller_finalexp']} bls_miller_finalexp "
+              f"launches, {f['wall_s']:.3f} s (card idle "
+              f"{f['idle_share']:.4f}); peer sent {f['peer_sent_bytes']:.0f}"
+              f" B; {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # generate_chain's own default; with it, the signature tampered at
@@ -3632,7 +4183,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--bls-cycles", action="store_true",
                     help="only build BLS_MICRO_CU and print its cycles")
+    ap.add_argument("--serve-peer", metavar="DIR",
+                    help="serve the FileDB block stores under DIR over p2p "
+                         "on the CPU (the p2p phase's child process)")
     args = ap.parse_args(argv)
+    if args.serve_peer:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return serve_peer(args.serve_peer)
 
     import torch
     if not torch.cuda.is_available():
@@ -3671,6 +4228,9 @@ def main(argv=None) -> int:
         raise
     log = {**log, "one_thread": {"output": yard.load(), "seconds": 0.0},
            "bls_yardsticks": {"output": bls_parent.load(), "seconds": 0.0}}
+    for name in ("kvlog", "aead"):      # the host C++ sources, with g++
+        _build.host_lib(name)
+        log[f"host/{name}"] = _build.BUILD_LOG[f"host/{name}"]
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f}s wall, " + ", ".join(
         f"{k} {v['seconds']:.1f}s" for k, v in log.items()
@@ -3793,6 +4353,10 @@ def main(argv=None) -> int:
     seal["pass_s"] = time.perf_counter() - t0
     print_sealsync(seal, gpu)
     t0 = time.perf_counter()
+    p2p = run_p2p(torch, pkg, pipe_chain, pipe_app, agg_chain, args.seed)
+    p2p["pass_s"] = time.perf_counter() - t0
+    print_p2p(p2p, gpu)
+    t0 = time.perf_counter()
     farm = run_farm(torch, pkg, chain, light, per_call)
     farm["pass_s"] = time.perf_counter() - t0
     print_farm(farm, gpu)
@@ -3830,6 +4394,10 @@ def main(argv=None) -> int:
             farm["forged"]["launches"][name],
             "launches_ingest": ingest["launches"][name] +
             ingest["shed"]["launches"][name],
+            "launches_p2p_sync": {
+                **{k: f["launches"][name] for k, f in p2p["syncs"].items()},
+                **{f"restart_{k}": p2p["restart"][k]["launches"][name]
+                   for k in ("first", "resumed")}},
             **{k: r[k] for k in ("launches_per_call",
                                  "launches_per_call_profiled", "lanes", "m")
                if k in r}}
@@ -3849,7 +4417,7 @@ def main(argv=None) -> int:
         if name == "pt_add_tiled":
             row["launches"] = ab[name]      # its own phase: the A/B
         kernels.append(row)
-    kernels += bls_kernel_rows(report, aggsig, seal)
+    kernels += bls_kernel_rows(report, aggsig, seal, p2p)
     for fig in (sync, bad):
         fig["verify_s"] = fig["span_s"].get("blocksync.verify", 0.0)
         fig["fetch_s"] = fig["span_s"].get("blocksync.fetch", 0.0)
@@ -3863,7 +4431,7 @@ def main(argv=None) -> int:
                       "tampered_r_decodes": r_decodes},
         "pipeline": pipe, "device_server": server,
         "light_client": light, "mixed_set": mixed, "aggsig": aggsig,
-        "sealsync": seal, "farm": farm, "ingest": ingest,
+        "sealsync": seal, "p2p": p2p, "farm": farm, "ingest": ingest,
         "bls_kernels": {k: report[k] for k in BLS_KERNELS},
         "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,

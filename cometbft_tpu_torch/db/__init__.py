@@ -1,1 +1,1 @@
-from .kv import KVStore, MemDB  # noqa: F401
+from .kv import KVStore, MemDB, FileDB, open_db  # noqa: F401

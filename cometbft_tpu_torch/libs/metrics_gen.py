@@ -3,11 +3,12 @@
 cache), `DeviceMetrics` (the device health supervisor), `AggsigMetrics`
 (aggregated-commit verification), `FarmMetrics` (the light-client
 verification farm), `IngestMetrics` (batched tx admission),
-`SealsyncMetrics` (seal sync) and `MempoolMetrics`.
+`SealsyncMetrics` (seal sync), `MempoolMetrics`, `StorageMetrics` (the
+recovery doctor, FileDB replay, the WAL) and `P2PMetrics` (the switch).
 
 Copied from `cometbft_tpu/libs/metrics_gen.py` (:23, :43, :57, :79,
-:103, :155 and :193), which tools/metricsgen.py generates from the JAX
-package's libs/metrics_defs.py. The port keeps only these; regenerate
+:103, :155, :193, :177 and :9), which tools/metricsgen.py generates
+from the JAX package's libs/metrics_defs.py. The port keeps only these; regenerate
 there and copy again if their definitions change. Names and labels are
 the JAX package's. Help texts say what the port does where it differs:
 `aggsig_aggregates_verified` is labelled by the device the kernels ran
@@ -150,3 +151,33 @@ class MempoolMetrics:
             'mempool_evicted_txs', 'Txs removed as invalid on post-commit recheck')
         self.recheck_times = reg.counter(
             'mempool_recheck_times', 'Post-commit recheck passes over the pool')
+
+
+class StorageMetrics:
+    """Generated metrics struct (5 metrics)."""
+
+    def __init__(self, reg: Registry):
+        self.doctor_runs = reg.counter(
+            'storage_doctor_runs', 'Boot-time recovery-doctor passes completed')
+        self.doctor_repairs = reg.counter(
+            'storage_doctor_repairs', 'Recovery-doctor repairs applied, by kind (meta-without-parts, orphaned-adopted-seal, stale-compact, stale-pv-tmp)', label_names=['kind'])
+        self.wal_corruption = reg.counter(
+            'storage_wal_corruption', 'Mid-group WAL CRC/length corruption events that truncated replay (disk damage, not crash-repair)')
+        self.torn_batches = reg.counter(
+            'storage_torn_batches', 'Uncommitted FileDB batch tails discarded at replay (crashed write_batch rolled back all-or-nothing)')
+        self.crc_failures = reg.counter(
+            'storage_crc_failures', 'FileDB v2 records failing CRC at replay (bit-rot detected instead of silently replayed)')
+
+
+class P2PMetrics:
+    """Generated metrics struct (4 metrics)."""
+
+    def __init__(self, reg: Registry):
+        self.peers = reg.gauge(
+            'p2p_peers', 'Number of connected peers')
+        self.message_send_bytes_total = reg.counter(
+            'p2p_message_send_bytes_total', 'Bytes sent to peers, by channel', label_names=['ch_id'])
+        self.message_receive_bytes_total = reg.counter(
+            'p2p_message_receive_bytes_total', 'Bytes received from peers, by channel', label_names=['ch_id'])
+        self.peer_dial_failures = reg.counter(
+            'p2p_peer_dial_failures', 'Failed outbound dial attempts')

@@ -8,6 +8,11 @@ checkout (listed in .gitignore), named by a digest of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused
 within a checkout. A failed build raises with the compiler's output:
 there is no fallback behind it.
+
+The port's host C++ sources (`csrc/host/*.cc`: the native log DB and the
+ChaCha20-Poly1305 of the p2p link) are built the same way by g++ into
+the same directory (`host_lib`), each at its first use, named by a
+digest of its source and flags. nvcc never sees them.
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ _LOCK = threading.Lock()
 _FNS: dict = {}
 _LIBS: list = []          # keeps the CDLL handles alive
 BUILD_LOG: dict = {}      # name -> {"seconds": s, "output": compiler text}
+
+HOST_SRC = CSRC / "host"
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+_HOST_LIBS: dict = {}     # host source name -> ctypes.CDLL
 
 
 def nvcc_path() -> str:
@@ -111,3 +120,41 @@ def kernel_fn(name: str):
             fn.restype = ctypes.c_int
             _FNS[name] = fn
     return fn
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update((HOST_SRC / f"{name}.cc").read_bytes())
+    return BUILD_DIR / f"host-{name}-{h.hexdigest()[:16]}.so"
+
+
+def host_lib(name: str) -> ctypes.CDLL:
+    """The library of host source `csrc/host/{name}.cc`, built by g++
+    into BUILD_DIR on first use (raises with the compiler's output when
+    the build fails). The caller declares argtypes and restype. ctypes
+    releases the interpreter lock for the length of each call."""
+    with _LOCK:
+        lib = _HOST_LIBS.get(name)
+        if lib is not None:
+            return lib
+        out = _host_target(name)
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found on PATH")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [gxx, *GXX_FLAGS, "-o", str(tmp),
+                 str(HOST_SRC / f"{name}.cc")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            BUILD_LOG[f"host/{name}"] = {
+                "seconds": time.monotonic() - t0, "output": proc.stdout}
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for host/{name}.cc "
+                                   f"(rc {proc.returncode}):\n{proc.stdout}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _HOST_LIBS[name] = lib
+        return lib

@@ -11,7 +11,8 @@ AggregatedCommit)` tuples alone:
                (hash-chain continuity, valset-hash epochs, pivot/skip
                schedule — all decided before any pairing runs)
   provider.py  serves seal tuples out of the blockstore, bounded +
-               shed (its p2p and RPC transports are not ported yet)
+               shed (over p2p through engine/reactor; its RPC routes
+               come with the RPC server)
   adopter.py   settles pivot seals in tiled canary-gated
                PairingChecker calls and installs adopted finality;
                block bodies backfill lazily through blocksync with

@@ -70,10 +70,10 @@ class SealRejected(SealChainError):
 
 
 class SealSource(Protocol):
-    """Seal provider seam — the in-memory fixture (chain_gen
-    ChainSealSource), a SealProvider behind a transport, or anything
-    else that can serve contiguous SealTuple runs (the JAX package's
-    p2p adapter, engine.reactor NetSealSource, is not ported yet)."""
+    """Seal provider seam — the p2p adapter (engine.reactor
+    NetSealSource), the in-memory fixture (chain_gen ChainSealSource),
+    a SealProvider behind another transport, or anything else that can
+    serve contiguous SealTuple runs."""
 
     def max_height(self) -> int: ...
     def fetch_seals(self, start: int, count: int) -> List[SealTuple]: ...

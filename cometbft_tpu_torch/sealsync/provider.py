@@ -18,9 +18,9 @@ Serving rules:
   before)
 
 Copy of `cometbft_tpu/sealsync/provider.py` (the port keeps its own).
-Its p2p and RPC transports (the JAX package's engine/reactor seal
-messages, /seal_range and /seal_status) are not ported yet (ROADMAP.md
-Queue 1: the host-only layers); a caller serves from `serve()`.
+Its p2p transport is engine/reactor (the seal messages of
+BlocksyncNetReactor, NetSealSource); the RPC routes /seal_range and
+/seal_status come with the RPC server (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations

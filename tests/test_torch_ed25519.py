@@ -229,7 +229,8 @@ def test_cached_key_signer_matches_ref_sign():
 
 def test_import_leaves_jax_and_reference_unloaded():
     """Every module of the package, imported in a fresh interpreter,
-    loads neither jax nor the JAX package."""
+    loads neither jax nor the JAX package, nor the `cryptography` wheel
+    (the card's machine has none)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cometbft_tpu_torch as pkg\n"
@@ -241,8 +242,14 @@ def test_import_leaves_jax_and_reference_unloaded():
         "assert 'cometbft_tpu_torch.crypto.sr25519' in names, names\n"
         "assert 'cometbft_tpu_torch.aggsig.verify' in names, names\n"
         "assert 'cometbft_tpu_torch.ops.bls12' in names, names\n"
+        "for new in ('db.kv', 'db.native.wrapper', 'libs.faultio',\n"
+        "            'consensus.wal', 'store.recovery', 'p2p.conn',\n"
+        "            'p2p.mconn', 'p2p.transport', 'p2p.switch',\n"
+        "            'engine.pool', 'engine.reactor'):\n"
+        "    assert 'cometbft_tpu_torch.' + new in names, (new, names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'cometbft_tpu' or m.startswith('cometbft_tpu.')]\n"
+        "       or m == 'cometbft_tpu' or m.startswith('cometbft_tpu.')\n"
+        "       or m == 'cryptography' or m.startswith('cryptography.')]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -251,6 +258,8 @@ def test_import_leaves_jax_and_reference_unloaded():
 
 
 def test_no_jax_or_reference_import_in_package():
+    """No import of jax, the JAX package or `cryptography` anywhere in
+    the package (the last: the card's machine has no such wheel)."""
     pkg = os.path.join(ROOT, "cometbft_tpu_torch")
     found = []
     for dirpath, _dirs, files in os.walk(pkg):
@@ -268,7 +277,8 @@ def test_no_jax_or_reference_import_in_package():
                     names = [node.module or ""]
                 for name in names:
                     top = name.split(".")[0]
-                    if top in ("jax", "jaxlib", "cometbft_tpu"):
+                    if top in ("jax", "jaxlib", "cometbft_tpu",
+                               "cryptography"):
                         found.append(f"{path}:{node.lineno} {name}")
     assert not found, found
 
