@@ -21,7 +21,8 @@ Phases; any failure exits non-zero:
    yardstick kernels of ONE_THREAD_CU (the parent's decompression and
    addition, from the same fe25519.cuh) and the BLS kernels' previous
    design, BLS_PREV_CU; then the host C++ sources (csrc/host: the native
-   log DB and the p2p link's ChaCha20-Poly1305) with g++; print the
+   log DB, the p2p link's ChaCha20-Poly1305 and the single-signature
+   ed25519 that signs and checks votes) with g++; print the
    build seconds, the registers and spills ptxas reports, and the card's
    name and power limit.
 2. Generate the pipeline's chain from --seed: 121 blocks of a
@@ -91,8 +92,8 @@ Phases; any failure exits non-zero:
      6 and the sync still reaches 48;
    - the pipelined catch-up over the 121-block chain, through
      `BlocksyncReactor(pipeline_depth=K)` with a DeviceWatchdog and a
-     DeviceSupervisor (canary lanes on): K = 1, 2 and 4, two timed
-     syncs each in alternating order (1, 2, 4, then 4, 2, 1), every run
+     DeviceSupervisor (canary lanes on): K = 1, 2 and 4, PIPE_REPEATS
+     timed syncs each in alternating order (1, 2, 4, then 4, 2, 1), every run
      kept, each with the main thread's and the process's
      CPU time and every `verify_lanes` call's wall and CPU time on the
      thread that made it (`VerifyClock`: the difference is time spent
@@ -166,7 +167,7 @@ Phases; any failure exits non-zero:
      pass's store with its cache: every seal an "ok" cache hit, no BLS
      launch, the generator's app state;
    - the light-client farm (`farm.VerificationFarm(device="cuda")`)
-     over the 48-block chain: 64 sessions subscribe at trusted heights
+     over the 48-block chain: 16 sessions subscribe at trusted heights
      1-8 in one wave (8 root commits of 134 lanes: one flush of ~1,070
      lanes), then one height a wave every session below it verifies it
      (one flush a wave, one new commit's 134 lanes after the cache and
@@ -204,6 +205,30 @@ Phases; any failure exits non-zero:
      the bytes each way, the handshake, AEAD, decode and fetch-wait
      seconds, the store write, reopen and doctor figures and the
      peer's own AEAD figures;
+   - consensus (`run_consensus`, the shared signature cache off so that
+     vote intake leaves the next block's last commit to the card): (a)
+     a node that leaves blocksync for consensus at 200 validators: a
+     serving node holds the 48-block chain, its ConsensusState at 49
+     behind a ConsensusReactor on its own Switch; a laggard blocksyncs
+     1..40, builds a non-validator ConsensusState over the state and
+     stores blocksync left (node.py:591's switch, by hand), dials it over
+     loopback TCP, and its reconciler's round states are served 41..48
+     (precommits and parts, under the server's token bucket): every
+     precommit through the native `_check_signature`, every block's
+     200-signature last commit through `verify_commit` on the card, one
+     flush a height (FlushCount), each height at the generator's app
+     hash; per height the wall, vote-verify, validate and apply seconds
+     and the token bucket's wait; (b) a BLS laggard at 60 over the
+     63-block aggregated chain: a forging peer's seal (n-1 signatures
+     under a full bitmap) fails the reactor's pairing on the card and
+     the peer is banned, then the honest server's seals for 61..63 are
+     adopted (`_on_seal_adopt_wire`, `bls_miller_finalexp`) and the
+     blocks finalized from their parts; (c) a live net of 4 port
+     validators (FilePVs in a temporary directory, the ported WAL, real
+     tickers, reconcilers) commits 5 equal heights over loopback TCP;
+     `VoteSet.add_votes` of the 48th height's 200 precommits on the card
+     with one tampered: one flush, the per-vote verdicts; and the native
+     ed25519's host ms a signature beside the oracle's;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
@@ -216,7 +241,8 @@ Phases; any failure exits non-zero:
    of the mixed set, of the farm and of tx admission; the BLS kernels'
    rows with the launches of their own paths, the aggregated catch-up
    and the multi-group `verify_commit`, and of seal sync's passes; the
-   p2p phase's launches of each), a timing line with the catch-up
+   p2p phase's launches of each; the consensus phase's launches of the
+   RLC kernels and of the BLS kernels), a timing line with the catch-up
    sigs/s and
    where the sync's time goes, the pipelined depths' medians and
    spreads, the server's stats, the light client's headers/s and the
@@ -250,7 +276,10 @@ RAGGED = 200          # a lane count that divides no block of the kernels
 CHUNKS = 3000         # window sums over three chunks, the last part empty
 PIPE_BLOCKS = 121     # three full 40-block tiles (24,000 sigs) and one more
 DEPTHS = (1, 2, 4)    # pipeline depths of the pipelined catch-up
-PIPE_REPEATS = 2      # timed syncs per depth, in alternating order
+# timed syncs per depth, in alternating order: 1 (a cut from 2 that keeps
+# the smoke inside its time limit beside the consensus phase; the
+# profiled sync is a second wall of each depth)
+PIPE_REPEATS = 1
 PROFILE_TRIES = 3     # profiled syncs per depth until one misses nothing
 PROFILE_TAIL_S = 0.2  # a profile stays open this long past its synchronize
 SERVER_LANES = 4000   # lanes each of the two device-server clients sends
@@ -332,7 +361,10 @@ AGG_TILE = 62
 # heights 1..FARM_ROOTS of the 48-block, 200-validator chain, then walk
 # to the tip one height a wave; a forged signature in commit FARM_FORGED
 # of a copy of the chain; FARM_PROFILED waves of another farm profiled
-FARM_SESSIONS = 64
+# 16 sessions: a cut from 64 that keeps the smoke inside its time limit
+# beside the consensus phase. The card sees the same flushes (the waves'
+# lanes are deduplicated across sessions); each session's host work goes.
+FARM_SESSIONS = 16
 FARM_ROOTS = 8
 FARM_FORGED = 20
 FARM_PROFILED = 8
@@ -1040,6 +1072,22 @@ def _bound_ms(mads: float, nbytes: float) -> tuple:
     t_ops = mads / INT32_MAD_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class Laps:
+    """Each phase's seconds and the smoke's running total, printed as the
+    phase ends: where the time limit goes when a slice adds a phase."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.took: dict = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.took[name] = now - self.last
+        print(f"phase {name}: {now - self.last:.1f} s (at "
+              f"{now - self.start:.1f} s)", flush=True)
+        self.last = now
 
 
 def _gpu_line() -> str:
@@ -4175,6 +4223,622 @@ def print_p2p(p2p: dict, gpu: str) -> None:
               f" B; {gpu}", flush=True)
 
 
+# --- consensus (slice 12) ---------------------------------------------------
+
+CS_BLOCKSYNC_TO = 40   # the laggard blocksyncs 1..40, then runs consensus
+CS_SEAL_FROM = 60      # the BLS laggard stands at 60 and adopts 61..63
+CS_NET_HEIGHTS = 5     # the live 4-validator net commits this many
+CS_DEADLINE_S = 120    # each consensus part must end by then
+CS_TAMPERED_VOTE = 17  # the add_votes burst's tampered precommit
+SIGCACHE_ENV = "COMETBFT_TPU_SIGCACHE_CAPACITY"
+
+
+def _replay_state(chain, height: int):
+    """The chain's state and kvstore app after its blocks 1..height,
+    applied without verification (the generator verified them) ->
+    (state, app)."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import State
+    app = KVStoreApplication()
+    app.init_chain(chain.chain_id, 1, [], b"")
+    ex = BlockExecutor(app, device="cuda")
+    state = State.from_genesis(chain.genesis)
+    for i in range(height):
+        state, _ = ex.apply_block(state, chain.block_ids[i],
+                                  chain.blocks[i], verified=True)
+    return state, app
+
+
+def _wait(cond, what: str, deadline_s: float = CS_DEADLINE_S) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"consensus: {what} not reached in "
+                                 f"{deadline_s} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+class CsNode:
+    """A port node of the consensus phase, wired as node.py wires one:
+    stores (in memory unless given), a kvstore `app` at `state`, a
+    BlockExecutor and a ConsensusState on the card (ConsensusMetrics
+    filled), a ConsensusReactor on its own Switch listening on loopback
+    TCP. `commits` holds (height, perf_counter) of each commit."""
+
+    def __init__(self, chain_id: str, state, app, store=None, pv=None,
+                 wal=None, config=None, name: str = ""):
+        from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+        from cometbft_tpu_torch.consensus.state import (ConsensusConfig,
+                                                        ConsensusState)
+        from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+        from cometbft_tpu_torch.db.kv import MemDB
+        from cometbft_tpu_torch.libs.metrics import (ConsensusMetrics,
+                                                     Registry)
+        from cometbft_tpu_torch.p2p.switch import Switch
+        from cometbft_tpu_torch.state.execution import BlockExecutor
+        from cometbft_tpu_torch.state.state import StateStore
+        from cometbft_tpu_torch.store.blockstore import BlockStore
+        self.name = name
+        self.store = store if store is not None else BlockStore(MemDB())
+        self.state_store = StateStore(MemDB())
+        self.state_store.save(state)
+        self.app = app
+        self.executor = BlockExecutor(app, state_store=self.state_store,
+                                      block_store=self.store, device="cuda")
+        self.metrics = ConsensusMetrics(Registry())
+        self.wal = wal
+        self.cs = ConsensusState(
+            config or ConsensusConfig(), state, self.executor, self.store,
+            priv_validator=pv, wal=wal, name=name, metrics=self.metrics,
+            device="cuda")
+        self.reactor = ConsensusReactor(self.cs)
+        self.switch = Switch(Ed25519PrivKey.generate(), chain_id,
+                             "cs-" + name)
+        self.switch.add_reactor(self.reactor)
+        self.reactor.attach(self.switch)
+        self.port = self.switch.listen()[1]
+        self.node_id = self.switch.transport.node_id
+        self.commits: list = []
+        self.cs.on_commit = lambda b, c: self.commits.append(
+            (b.header.height, time.perf_counter()))
+        self.started = False
+
+    def dial(self, other: "CsNode") -> None:
+        n = len(self.switch.peers())
+        self.switch.dial("127.0.0.1", other.port)
+        _wait(lambda: len(self.switch.peers()) > n,
+              f"{self.name} connected to {other.name}", 30)
+
+    def start(self, reconcile: bool = True) -> None:
+        self.cs.start()
+        if reconcile:
+            self.reactor.start_reconciler()
+        self.started = True
+
+    def stop(self) -> None:
+        self.reactor.stop()
+        if self.started:
+            self.cs.stop()
+        self.switch.stop()
+        if self.wal is not None:
+            self.wal.close()
+
+
+class _NoSigCache:
+    """The shared signature cache off (COMETBFT_TPU_SIGCACHE_CAPACITY=0,
+    the documented switch) for a `with` block: vote intake would
+    otherwise record every precommit it verifies, and the next block's
+    last commit, the same signatures, would verify from the cache with
+    no flush."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+        self.old = os.environ.get(SIGCACHE_ENV)
+        os.environ[SIGCACHE_ENV] = "0"
+        reset_shared_cache()
+        return self
+
+    def __exit__(self, *exc):
+        from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+        if self.old is None:
+            os.environ.pop(SIGCACHE_ENV, None)
+        else:
+            os.environ[SIGCACHE_ENV] = self.old
+        reset_shared_cache()
+
+
+class _HeightClock:
+    """Per-height seconds of a laggard's vote verification
+    (`VoteSet._check_signature`, the native single-signature verify),
+    block validation (`validate_block`: the last commit's verify_commit on
+    the card) and `apply_block`, and the app hash each apply reached; and,
+    on the serving reactor, when a height was first asked for (a round
+    state below its own) and when it was served (the catch-up token
+    bucket let it through, and how many times in all)."""
+
+    def __init__(self, laggard: CsNode, server=None):
+        from cometbft_tpu_torch.types import vote_set
+        self.vs_cls = vote_set.VoteSet
+        self.orig_check = self.vs_cls._check_signature
+        self.vote_s, self.verify_s, self.apply_s = {}, {}, {}
+        self.app_hash, self.asked, self.served = {}, {}, {}
+        self.serves: dict = {}
+        clock = self
+
+        def check(vs, vote, val):
+            t0 = time.perf_counter()
+            try:
+                return clock.orig_check(vs, vote, val)
+            finally:
+                clock.vote_s[vs.height] = clock.vote_s.get(vs.height, 0.0) \
+                    + time.perf_counter() - t0
+        self.vs_cls._check_signature = check
+        ex = laggard.executor
+        validate, apply = ex.validate_block, ex.apply_block
+
+        def timed_validate(state, block, **kw):
+            t0 = time.perf_counter()
+            try:
+                return validate(state, block, **kw)
+            finally:
+                h = block.header.height
+                clock.verify_s[h] = clock.verify_s.get(h, 0.0) + \
+                    time.perf_counter() - t0
+
+        def timed_apply(state, block_id, block, verified=False):
+            t0 = time.perf_counter()
+            new_state, resp = apply(state, block_id, block,
+                                    verified=verified)
+            h = block.header.height
+            clock.apply_s[h] = time.perf_counter() - t0
+            clock.app_hash[h] = new_state.app_hash
+            return new_state, resp
+        ex.validate_block, ex.apply_block = timed_validate, timed_apply
+        if server is not None:
+            r = server.reactor
+            on_rs, serve = r._on_round_state, r._serve_decided_height
+
+            def timed_on_rs(st, peer):
+                if st.height < r.cs.rs.height:
+                    clock.asked.setdefault(st.height, time.perf_counter())
+                on_rs(st, peer)
+
+            def timed_serve(peer, h):
+                before = r._catchup_sent.get(peer.id)
+                serve(peer, h)
+                if r._catchup_sent.get(peer.id) is not before:
+                    clock.served.setdefault(h, time.perf_counter())
+                    clock.serves[h] = clock.serves.get(h, 0) + 1
+            r._on_round_state, r._serve_decided_height = timed_on_rs, \
+                timed_serve
+
+    def close(self) -> None:
+        self.vs_cls._check_signature = self.orig_check
+
+
+def _per_height(node: CsNode, clock: _HeightClock, t0: float) -> list:
+    rows, prev = [], t0
+    for h, t in node.commits:
+        served, asked = clock.served.get(h), clock.asked.get(h)
+        rows.append({
+            "height": h, "wall_s": t - prev,
+            "vote_verify_s": clock.vote_s.get(h, 0.0),
+            "validate_s": clock.verify_s.get(h, 0.0),
+            "apply_s": clock.apply_s.get(h, 0.0),
+            "wait_from_commit_to_serve_s":
+                None if served is None else served - prev,
+            "bucket_wait_s": None if served is None or asked is None
+            else served - asked, "serves": clock.serves.get(h, 0)})
+        prev = t
+    return rows
+
+
+def run_consensus_catchup(torch, pkg, chain, gen_app, per_call: dict
+                          ) -> dict:
+    """Part (a): a node that leaves blocksync for consensus at 200
+    validators. A serving node holds the 48-block chain in its stores,
+    its ConsensusState at 49, behind a ConsensusReactor on its own Switch.
+    A laggard blocksyncs 1..40 (`BlocksyncReactor`, one 8,000-lane flush),
+    then builds a non-validator ConsensusState over the state and stores
+    blocksync left (node.py:591's switch, by hand), dials the server and
+    runs its reactor's reconciler: each round state it sends below the
+    server's height is served that height's precommits (votes_from_commit)
+    and parts, under the server's token bucket (CATCHUP_BURST 4,
+    CATCHUP_REFILL_SECS 2.0). Every precommit goes through
+    `_check_signature` (native), every block's last commit of 200
+    signatures through `verify_commit` on the card: one flush a height
+    (the shared signature cache is off, `_NoSigCache`), counted by
+    FlushCount. Each height must reach the generator's app hash."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.db.kv import MemDB
+    from cometbft_tpu_torch.engine.blocksync import BlocksyncReactor
+    from cometbft_tpu_torch.engine.chain_gen import LocalChainSource
+    from cometbft_tpu_torch.pipeline.cache import SigCache
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    ped = pkg["ped"]
+    top = chain.max_height()
+    t0 = time.perf_counter()
+    srv_state, srv_app = _replay_state(chain, top)
+    srv_store = BlockStore(MemDB())
+    for b, c in zip(chain.blocks, chain.seen_commits):
+        srv_store.save_block(b, b.make_part_set(), c)
+    server = CsNode(chain.chain_id, srv_state, srv_app, store=srv_store,
+                    name="server")
+    setup_s = time.perf_counter() - t0
+    nodes = [server]
+    try:
+        app = KVStoreApplication()
+        app.init_chain(chain.chain_id, 1, [], b"")
+        store = BlockStore(MemDB())
+        bs = BlocksyncReactor(
+            BlockExecutor(app, device="cuda"), store,
+            LocalChainSource(chain), chain.chain_id, tile_size=TILE,
+            batch_size=LANES, cache=SigCache(), device="cuda")
+        t0 = time.perf_counter()
+        state = bs.sync(State.from_genesis(chain.genesis), CS_BLOCKSYNC_TO)
+        torch.cuda.synchronize()
+        blocksync_s = time.perf_counter() - t0
+        if state.last_block_height != CS_BLOCKSYNC_TO or state.app_hash != \
+                chain.blocks[CS_BLOCKSYNC_TO].header.app_hash:
+            raise AssertionError(f"consensus: blocksync stopped at "
+                                 f"{state.last_block_height}")
+        lag = CsNode(chain.chain_id, state, app, store=store, name="laggard")
+        nodes.append(lag)
+        lag.dial(server)
+        clock = _HeightClock(lag, server)
+        canary0 = ped.canary_stats()["trips"]
+        try:
+            server.start(reconcile=False)
+            count = FlushCount(torch, pkg, per_call)
+            t0 = time.perf_counter()
+            lag.start()
+            _wait(lambda: lag.cs.state.last_block_height >= top,
+                  f"laggard at {top}")
+            wall = time.perf_counter() - t0
+            flushes = count.read("consensus catch-up",
+                                 want_flushes=top - CS_BLOCKSYNC_TO)
+        finally:
+            clock.close()
+        heights = _per_height(lag, clock, t0)
+    finally:
+        for n in nodes:
+            n.stop()
+    for h in range(CS_BLOCKSYNC_TO + 1, top + 1):
+        want = chain.blocks[h].header.app_hash if h < top \
+            else gen_app.last_app_hash
+        if clock.app_hash.get(h) != want:
+            raise AssertionError(f"consensus catch-up: height {h} reached "
+                                 f"another app hash than the generator's")
+    if lag.app.state != gen_app.state or \
+            lag.store.load_block(top).hash() != chain.blocks[-1].hash() or \
+            ped.canary_stats()["trips"] != canary0:
+        raise AssertionError("consensus catch-up: final app state, tip "
+                             "block or canary differ")
+    bucket = sum(r["bucket_wait_s"] or 0.0 for r in heights)
+    # a height served again before the laggard finished it (its round
+    # state every RECONCILE_SECS) spends a token too: past the burst the
+    # bucket alone allows no shorter wall than this
+    serves = sum(r["serves"] for r in heights)
+    from cometbft_tpu_torch.consensus.reactor import ConsensusReactor as R
+    bucket_bound = max(0, serves - R.CATCHUP_BURST) * R.CATCHUP_REFILL_SECS
+    return {"serves": serves, "bucket_bound_s": bucket_bound,
+            "bucket_bound_share": bucket_bound / wall,
+            "validators": VALIDATORS, "blocksync_to": CS_BLOCKSYNC_TO,
+            "to": top, "setup_s": setup_s, "blocksync_s": blocksync_s,
+            "wall_s": wall, "heights": heights,
+            "vote_verify_s": sum(r["vote_verify_s"] for r in heights),
+            "validate_s": sum(r["validate_s"] for r in heights),
+            "apply_s": sum(r["apply_s"] for r in heights),
+            "bucket_wait_s": bucket, "bucket_share": bucket / wall,
+            "flush_count": flushes, "launches": flushes["launches"],
+            "block_processing_s": sum(
+                lag.metrics.block_processing._sums.values())}
+
+
+def run_consensus_seal(torch, agg_chain, agg_app) -> dict:
+    """Part (b): seal adoption through the reactor over the 63-block
+    aggregated BLS chain. A BLS laggard at CS_SEAL_FROM first dials a
+    forging peer, which answers its round state with a seal of n-1
+    signatures under a full bitmap ("bitmap"): the laggard reactor's
+    pairing (`_on_seal_adopt_wire` -> `settle_seals`, one
+    `bls_miller_finalexp` launch) fails and the peer is banned. It then
+    dials the honest server (the chain in its stores, its state at 64) and
+    adopts 61..63 from served seals, finalizing each block from its parts
+    (each block's aggregated last commit verified on the card too)."""
+    from cometbft_tpu_torch.consensus import reactor as csr
+    from cometbft_tpu_torch.db.kv import MemDB
+    from cometbft_tpu_torch.engine.chain_gen import _forge_seal
+    from cometbft_tpu_torch.ops import bls12 as pb
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.types import proto
+    top = agg_chain.max_height()
+    srv_state, srv_app = _replay_state(agg_chain, top)
+    srv_store = BlockStore(MemDB())
+    for b, c in zip(agg_chain.blocks, agg_chain.seen_commits):
+        srv_store.save_block(b, b.make_part_set(), c)
+    nodes = []
+    out: dict = {}
+    try:
+        server = CsNode(agg_chain.chain_id, srv_state, srv_app,
+                        store=srv_store, name="seal-server")
+        forger = CsNode(agg_chain.chain_id, srv_state, srv_app,
+                        store=srv_store, name="forger")
+        nodes += [server, forger]
+
+        def forged_serve(peer, h):
+            commit = _forge_seal(agg_chain, agg_chain.seen_commits[h - 1],
+                                 "bitmap")
+            body = proto.f_varint(1, h) + proto.f_bytes(2, commit.encode())
+            peer.try_send(csr.VOTE_CHANNEL,
+                          bytes([csr._SEAL_ADOPT]) + body)
+        forger.reactor._serve_decided_height = forged_serve
+        state, app = _replay_state(agg_chain, CS_SEAL_FROM)
+        lag = CsNode(agg_chain.chain_id, state, app, name="seal-laggard")
+        nodes.append(lag)
+        clock = _HeightClock(lag, server)
+        try:
+            lag.dial(forger)
+            torch.cuda.synchronize()
+            pb.reset_launches()
+            t0 = time.perf_counter()
+            lag.start()
+            _wait(lambda: forger.node_id in lag.switch.banned,
+                  "the forger's ban")
+            torch.cuda.synchronize()
+            out["forged"] = {"ban_s": time.perf_counter() - t0,
+                             "launches": dict(pb.LAUNCHES),
+                             "height": lag.cs.state.last_block_height}
+            lag.dial(server)
+            torch.cuda.synchronize()
+            pb.reset_launches()
+            t0 = time.perf_counter()
+            _wait(lambda: lag.cs.state.last_block_height >= top,
+                  f"the BLS laggard at {top}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out["adopt"] = {"from": CS_SEAL_FROM, "to": top, "wall_s": wall,
+                            "launches": dict(pb.LAUNCHES),
+                            "heights": _per_height(lag, clock, t0)}
+        finally:
+            clock.close()
+    finally:
+        for n in nodes:
+            n.stop()
+    f, a = out["forged"], out["adopt"]
+    if f["height"] != CS_SEAL_FROM or \
+            f["launches"]["bls_miller_finalexp"] < 1:
+        raise AssertionError(f"consensus seal: the forgery: {f}")
+    for h in range(CS_SEAL_FROM + 1, top + 1):
+        want = agg_chain.blocks[h].header.app_hash if h < top \
+            else agg_app.last_app_hash
+        if clock.app_hash.get(h) != want:
+            raise AssertionError(f"consensus seal: height {h} reached "
+                                 f"another app hash than the generator's")
+    if a["launches"]["bls_miller_finalexp"] < 1 or a["launches"][
+            "bls_hard_pow"]:
+        raise AssertionError(f"consensus seal: adoption launches {a}")
+    out["launches"] = {k: f["launches"][k] + a["launches"][k]
+                       for k in a["launches"]}
+    return out
+
+
+def run_consensus_net(torch, seed: int, d: str) -> dict:
+    """Part (c): a live net of 4 port validators on loopback TCP, each a
+    ConsensusState (FilePV under `d`, the ported WAL, real timeout
+    tickers), a ConsensusReactor with its reconciler and a Switch dialled
+    to the others; it must commit CS_NET_HEIGHTS heights with the same
+    block hashes on every node, its votes on the host (4 signatures stay
+    under the batch threshold)."""
+    import random
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.consensus.state import ConsensusConfig
+    from cometbft_tpu_torch.consensus.wal import WAL
+    from cometbft_tpu_torch.privval.file import FilePV
+    from cometbft_tpu_torch.state.state import GenesisDoc, State
+    from cometbft_tpu_torch.types.proto import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator
+    rng = random.Random(seed)
+    pvs = []
+    for i in range(4):
+        pv = FilePV.generate(os.path.join(d, f"pv{i}.json"), rng)
+        pv._save()
+        pvs.append(pv)
+    pvs.sort(key=lambda pv: pv.address())
+    gen = GenesisDoc(chain_id="cs-net", genesis_time=Timestamp.now(),
+                     validators=[Validator(pv.get_pub_key(), 10)
+                                 for pv in pvs])
+    config = ConsensusConfig(
+        timeout_propose=400, timeout_propose_delta=200,
+        timeout_prevote=200, timeout_prevote_delta=100,
+        timeout_precommit=200, timeout_precommit_delta=100,
+        timeout_commit=40)
+    nodes = []
+    try:
+        for i, pv in enumerate(pvs):
+            app = KVStoreApplication()
+            app.init_chain(gen.chain_id, 1, gen.validators, b"")
+            os.makedirs(os.path.join(d, f"wal{i}"))
+            nodes.append(CsNode(
+                gen.chain_id, State.from_genesis(gen), app,
+                pv=FilePV.load(pv.state_path),
+                wal=WAL(os.path.join(d, f"wal{i}", "wal")), config=config,
+                name=f"val{i}"))
+        for i, n in enumerate(nodes):
+            for other in nodes[:i]:
+                n.dial(other)
+        t0 = time.perf_counter()
+        for n in nodes:
+            n.start()
+        _wait(lambda: all(n.cs.state.last_block_height >= CS_NET_HEIGHTS
+                          for n in nodes), f"the net at {CS_NET_HEIGHTS}")
+        wall = time.perf_counter() - t0
+    finally:
+        for n in nodes:
+            n.stop()
+    hashes = [[n.store.load_block(h).hash() for h in
+               range(1, CS_NET_HEIGHTS + 1)] for n in nodes]
+    if any(h != hashes[0] for h in hashes):
+        raise AssertionError("consensus net: the nodes hold other blocks")
+    wal_bytes = [sum(os.path.getsize(os.path.join(d, f"wal{i}", f))
+                     for f in os.listdir(os.path.join(d, f"wal{i}")))
+                 for i in range(4)]
+    return {"validators": 4, "heights": CS_NET_HEIGHTS, "wall_s": wall,
+            "s_per_height": wall / CS_NET_HEIGHTS,
+            "tips": [n.cs.state.last_block_height for n in nodes],
+            "rounds": [n.metrics.rounds.value(reason="round_skip")
+                       for n in nodes],
+            "wal_bytes": wal_bytes}
+
+
+def run_add_votes(torch, pkg, chain, per_call: dict) -> dict:
+    """Part (c), second half: `VoteSet.add_votes` of the 200 precommits
+    of the chain's last height on the card, precommit CS_TAMPERED_VOTE
+    with a flipped s byte: one flush (attributed per lane), and the
+    verdicts must equal adding each vote alone (native, per vote)."""
+    from cometbft_tpu_torch.consensus.reactor import votes_from_commit
+    from cometbft_tpu_torch.types.vote import PRECOMMIT_TYPE
+    from cometbft_tpu_torch.types.vote_set import VoteError, VoteSet
+    h = chain.max_height()
+    commit, vals = chain.seen_commits[h - 1], chain.valsets[h - 1]
+    votes = votes_from_commit(commit)
+    bad = votes[CS_TAMPERED_VOTE]
+    bad.signature = bad.signature[:40] + bytes([bad.signature[40] ^ 4]) + \
+        bad.signature[41:]
+    vs = VoteSet(chain.chain_id, h, commit.round, PRECOMMIT_TYPE, vals)
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    got = vs.add_votes(votes, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fc = count.read("add_votes", want_flushes=1)
+    one = VoteSet(chain.chain_id, h, commit.round, PRECOMMIT_TYPE, vals)
+    single = []
+    t0 = time.perf_counter()
+    for v in votes:
+        try:
+            single.append(one.add_vote(v))
+        except VoteError as e:
+            single.append(e)
+    single_s = time.perf_counter() - t0
+
+    def kind(x):
+        return type(x).__name__ if isinstance(x, Exception) else x
+    verdicts = [kind(x) for x in got]
+    if verdicts != [kind(x) for x in single] or \
+            verdicts[CS_TAMPERED_VOTE] != "ErrVoteInvalidSignature" or \
+            verdicts.count(True) != len(votes) - 1 or \
+            vs.make_commit().encode() != one.make_commit().encode():
+        raise AssertionError(f"add_votes: batch {verdicts}, per vote "
+                             f"{[kind(x) for x in single]}")
+    return {"votes": len(votes), "wall_s": wall, "per_vote_s": single_s,
+            "flush_count": fc, "launches": fc["launches"],
+            "rejected": [i for i, v in enumerate(verdicts) if v is not True]}
+
+
+def native_ed25519_ms(ref, reps: int = 200, oracle_reps: int = 5) -> dict:
+    """Median host ms of one signature and one verify of a 120-byte
+    message, natively (`csrc/host/ed25519.cc` through
+    `Ed25519PrivKey.sign` and `Ed25519PubKey.verify_signature`) and
+    through the oracle (`ref_ed25519.sign`, `ref_ed25519.verify`), in the
+    same run."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    seed, msg = bytes(range(32)), bytes(range(120))
+    key = Ed25519PrivKey(seed)
+    pub = key.pub_key()
+
+    def med(fn, n):
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+    sig = key.sign(msg)
+    if sig != ref.sign(seed, msg) or not pub.verify_signature(msg, sig):
+        raise AssertionError("native ed25519 disagrees with the oracle")
+    return {"native_sign_ms": med(lambda: key.sign(msg), reps),
+            "native_verify_ms": med(
+                lambda: pub.verify_signature(msg, sig), reps),
+            "oracle_sign_ms": med(lambda: ref.sign(seed, msg), oracle_reps),
+            "oracle_verify_ms": med(
+                lambda: ref.verify(pub.bytes_(), msg, sig), oracle_reps),
+            "reps": reps, "oracle_reps": oracle_reps, "msg_bytes": len(msg)}
+
+
+def run_consensus(torch, pkg, chain, gen_app, agg_chain, agg_app,
+                  seed: int, per_call: dict) -> dict:
+    """The consensus phase: parts (a), (b) and (c) with the shared
+    signature cache off, the add_votes burst, and the native ed25519's
+    host times."""
+    import shutil
+    import tempfile
+    out: dict = {}
+    t0 = time.perf_counter()
+    out["ed25519_host"] = native_ed25519_ms(pkg["ref"])
+    with _NoSigCache():
+        out["catchup"] = run_consensus_catchup(torch, pkg, chain, gen_app,
+                                               per_call)
+        out["seal"] = run_consensus_seal(torch, agg_chain, agg_app)
+        d = tempfile.mkdtemp(prefix="chip_smoke_cs_",
+                             dir=os.path.join(os.path.dirname(
+                                 os.path.abspath(__file__)), "build"))
+        try:
+            out["net"] = run_consensus_net(torch, seed, d)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        out["add_votes"] = run_add_votes(torch, pkg, chain, per_call)
+    out["pass_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_consensus(cons: dict, gpu: str) -> None:
+    c = cons["catchup"]
+    print(f"consensus catch-up: blocksync 1..{c['blocksync_to']} in "
+          f"{c['blocksync_s']:.3f} s, then consensus {c['blocksync_to'] + 1}"
+          f"..{c['to']} at {c['validators']} validators in {c['wall_s']:.3f}"
+          f" s (votes verified {c['vote_verify_s']:.3f} s, blocks validated "
+          f"{c['validate_s']:.3f} s, applied {c['apply_s']:.3f} s; token "
+          f"bucket wait {c['bucket_wait_s']:.3f} s, "
+          f"{c['bucket_share']:.3f} of the wall; {c['serves']} serves, the "
+          f"bucket's least wall for them {c['bucket_bound_s']:.1f} s, "
+          f"{c['bucket_bound_share']:.3f} of the wall); "
+          f"{c['flush_count']['flushes']}"
+          f" flushes, {c['flush_count']['canaries']} canary runs, RLC "
+          f"launches {c['launches']}; {gpu}", flush=True)
+    for r in c["heights"]:
+        print(f"  height {r['height']}: wall {r['wall_s']:.3f} s, vote "
+              f"verify {r['vote_verify_s']:.3f} s, validate "
+              f"{r['validate_s']:.3f} s, apply {r['apply_s']:.4f} s, "
+              f"commit->serve {r['wait_from_commit_to_serve_s']}, bucket "
+              f"wait {r['bucket_wait_s']}, served {r['serves']}x",
+              flush=True)
+    s = cons["seal"]
+    print(f"consensus seal adoption: forger banned in "
+          f"{s['forged']['ban_s']:.3f} s ({s['forged']['launches']}); "
+          f"{s['adopt']['from'] + 1}..{s['adopt']['to']} adopted in "
+          f"{s['adopt']['wall_s']:.3f} s ({s['adopt']['launches']}); "
+          f"{gpu}", flush=True)
+    n = cons["net"]
+    print(f"consensus net: {n['validators']} port validators over loopback "
+          f"TCP committed {n['heights']} equal heights in {n['wall_s']:.3f}"
+          f" s ({n['s_per_height']:.3f} s a height; round skips "
+          f"{n['rounds']}; WAL bytes {n['wal_bytes']}); {gpu}", flush=True)
+    a = cons["add_votes"]
+    print(f"consensus add_votes: {a['votes']} precommits on the card in "
+          f"{a['wall_s']:.3f} s (one flush, rejected {a['rejected']}), per "
+          f"vote natively {a['per_vote_s']:.3f} s; launches "
+          f"{a['launches']}; {gpu}", flush=True)
+    e = cons["ed25519_host"]
+    print(f"ed25519 on the host, ms a signature: native sign "
+          f"{e['native_sign_ms']:.4f}, verify {e['native_verify_ms']:.4f}; "
+          f"oracle sign {e['oracle_sign_ms']:.3f}, verify "
+          f"{e['oracle_verify_ms']:.3f}; {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # generate_chain's own default; with it, the signature tampered at
@@ -4217,6 +4881,7 @@ def main(argv=None) -> int:
         return 0
 
     # phase 1: build (the yardstick's nvcc runs beside the port's)
+    laps = Laps()
     t0 = time.perf_counter()
     yard = OneThread(_build)
     bls_parent = BlsYard(_build)
@@ -4228,7 +4893,7 @@ def main(argv=None) -> int:
         raise
     log = {**log, "one_thread": {"output": yard.load(), "seconds": 0.0},
            "bls_yardsticks": {"output": bls_parent.load(), "seconds": 0.0}}
-    for name in ("kvlog", "aead"):      # the host C++ sources, with g++
+    for name in ("kvlog", "aead", "ed25519"):  # host C++, with g++
         _build.host_lib(name)
         log[f"host/{name}"] = _build.BUILD_LOG[f"host/{name}"]
     build_s = time.perf_counter() - t0
@@ -4240,6 +4905,7 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 print(f"ptxas {name}: {line.strip()}")
     print(f"gpu: {gpu}", flush=True)
+    laps("build")
 
     # phase 2: the chains, from --seed, and the seam's tile
     t0 = time.perf_counter()
@@ -4253,6 +4919,7 @@ def main(argv=None) -> int:
     tile, marshal_s = tile_from_chain(ref, chain, LANES)
     print(f"chain: its first {BLOCKS} blocks, the generator's app replayed "
           f"in {gen_s:.1f}s; tile: their first {LANES} lanes", flush=True)
+    laps("chains")
 
     # phase 3: kernels against their plain versions
     report: dict = {}
@@ -4263,12 +4930,14 @@ def main(argv=None) -> int:
           f"window sums; epilogue at M = {report['rlc_epilogue']['m_held']})",
           flush=True)
     where = breakdown(torch, pkg, tile, dev)
+    laps("kernel holds")
     check_bls_kernels(torch, dev, report, bls_parent)
     print(f"bls kernels match their plain versions and the previous design "
           f"at B = {', '.join(map(str, BLS_BUCKETS))} (final Fq12 limbs and "
           f"verdicts, max_abs_err 0; lanes against the host oracle, the "
           f"1-pair, all-identity, zero and pad lanes among them; "
           f"bls_hard_pow also at a 40-bit exponent)", flush=True)
+    laps("bls holds")
 
     # phase 4: the paths, counts zeroed just before each, read just after
     rlc = ("pt_decompress_tiled", "rlc_window_sums", "rlc_epilogue")
@@ -4276,6 +4945,7 @@ def main(argv=None) -> int:
     cv.reset_launches()
     run_main_path(torch, pkg, tile, e2e)
     seam = _read_path(cv.LAUNCHES, "seam", rlc)
+    laps("main path")
 
     sync = run_blocksync(torch, pkg, chain, gen_app, args.seed)
     launches = _read_path(sync["launches"], "blocksync", rlc)
@@ -4302,6 +4972,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"tampered sync banned {bad['banned']}")
     if r_decodes and not bad["per_lane"]:
         raise AssertionError("the tampered tile was not attributed per lane")
+    laps("blocksync")
 
     pipe = run_pipeline(torch, pkg, pipe_chain, pipe_app, args.seed)
     for d, f in pipe["depths"].items():
@@ -4313,11 +4984,13 @@ def main(argv=None) -> int:
               f"card idle "
               f"{'not measured' if idle is None else f'{idle:.3f}'} of a "
               f"profiled sync)", flush=True)
+    laps("pipelined")
     server = run_device_server(torch, pkg, tile, chain, gen_app, args.seed)
     print(f"device server: {server['stats']}; two clients of "
           f"{SERVER_LANES} lanes in {server['two_clients_s']:.3f} s "
           f"({server['two_clients_flushes']} flush(es)); 48-block sync at "
           f"depth 2 through it {server['sync']['wall_s']:.3f} s", flush=True)
+    laps("device server")
 
     per_call = {k: report[k]["launches_per_call"] for k in rlc}
     light = run_light_client(torch, pkg, chain, per_call)
@@ -4330,6 +5003,7 @@ def main(argv=None) -> int:
           f"{light['forged_witness']['error']}; tampered commit: "
           f"{light['tampered_commit']['error']}; launches "
           f"{light['launches']}", flush=True)
+    laps("light client")
     mixed = run_mixed_set(torch, pkg, chain, args.seed, per_call)
     print(f"mixed set {MIXED_SET}: seam flush "
           f"{mixed['seam_clean']['wall_s']:.3f} s clean, "
@@ -4345,29 +5019,41 @@ def main(argv=None) -> int:
           f"tampered: banned {mixed['sync']['tampered']['banned']}; "
           f"launches {mixed['launches']}; "
           f"host ms a signature {mixed['host_ms']}", flush=True)
+    laps("mixed set")
 
     aggsig, agg_chain, agg_app = run_aggsig(torch, args.seed)
     print_aggsig(aggsig, gpu)
+    laps("aggsig")
     t0 = time.perf_counter()
     seal = run_sealsync(torch, agg_chain, agg_app, args.seed)
     seal["pass_s"] = time.perf_counter() - t0
     print_sealsync(seal, gpu)
+    laps("seal sync")
     t0 = time.perf_counter()
     p2p = run_p2p(torch, pkg, pipe_chain, pipe_app, agg_chain, args.seed)
     p2p["pass_s"] = time.perf_counter() - t0
     print_p2p(p2p, gpu)
+    laps("p2p")
     t0 = time.perf_counter()
     farm = run_farm(torch, pkg, chain, light, per_call)
     farm["pass_s"] = time.perf_counter() - t0
     print_farm(farm, gpu)
+    laps("farm")
     t0 = time.perf_counter()
     ingest = run_ingest(torch, pkg, args.seed, per_call)
     ingest["pass_s"] = time.perf_counter() - t0
     print_ingest(ingest, gpu)
+    laps("tx admission")
+
+    cons = run_consensus(torch, pkg, chain, gen_app, agg_chain, agg_app,
+                         args.seed, per_call)
+    print_consensus(cons, gpu)
+    laps("consensus")
 
     cv.reset_launches()
     run_pt_add_ab(torch, pkg, add_args, report)
     ab = _read_path(cv.LAUNCHES, "pt_add_tiled A/B", ("pt_add_tiled",))
+    laps("pt_add A/B")
 
     # phase 5: report
     kernels = []
@@ -4398,6 +5084,9 @@ def main(argv=None) -> int:
                 **{k: f["launches"][name] for k, f in p2p["syncs"].items()},
                 **{f"restart_{k}": p2p["restart"][k]["launches"][name]
                    for k in ("first", "resumed")}},
+            "launches_consensus": {
+                "catchup": cons["catchup"]["launches"][name],
+                "add_votes": cons["add_votes"]["launches"][name]},
             **{k: r[k] for k in ("launches_per_call",
                                  "launches_per_call_profiled", "lanes", "m")
                if k in r}}
@@ -4418,6 +5107,10 @@ def main(argv=None) -> int:
             row["launches"] = ab[name]      # its own phase: the A/B
         kernels.append(row)
     kernels += bls_kernel_rows(report, aggsig, seal, p2p)
+    for row in kernels[-len(BLS_KERNELS):]:
+        row["launches_consensus_seal"] = {
+            k: cons["seal"][k]["launches"][row["name"]]
+            for k in ("forged", "adopt")}
     for fig in (sync, bad):
         fig["verify_s"] = fig["span_s"].get("blocksync.verify", 0.0)
         fig["fetch_s"] = fig["span_s"].get("blocksync.fetch", 0.0)
@@ -4432,11 +5125,13 @@ def main(argv=None) -> int:
         "pipeline": pipe, "device_server": server,
         "light_client": light, "mixed_set": mixed, "aggsig": aggsig,
         "sealsync": seal, "p2p": p2p, "farm": farm, "ingest": ingest,
+        "consensus": cons,
         "bls_kernels": {k: report[k] for k in BLS_KERNELS},
         "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,
         "breakdown": where, "lanes": LANES,
-        "build_s": build_s, "canary": ped.canary_stats(), "gpu": gpu}}),
+        "build_s": build_s, "phase_s": laps.took,
+        "canary": ped.canary_stats(), "gpu": gpu}}),
         flush=True)
     print(f"blocksync: {sync['sigs_per_s']:.1f} sigs/s catch-up "
           f"({sync['sigs_verified']} sigs in {sync['wall_s']:.3f} s; "

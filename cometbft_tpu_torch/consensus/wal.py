@@ -23,9 +23,8 @@ like db/kv.FileDB.
 
 Copy of `cometbft_tpu/consensus/wal.py` over the port's `types/vote`
 `Vote` and `Proposal`; a WAL written by either package reads in the
-other. The rest of `consensus/` is not ported yet (ROADMAP.md Queue 1:
-the host-only layers): the recovery doctor reads the WAL, consensus
-will write it.
+other. The recovery doctor reads the WAL; the port's consensus state
+machine (`consensus/state.py`) writes and replays it.
 """
 
 from __future__ import annotations

@@ -7,10 +7,16 @@ PrivKey, BatchVerifier), with the port's kernels behind
 `Ed25519BatchVerifier`. Single-signature verification uses ZIP-215
 semantics, the same as the batch path, which is what makes batch-failure
 attribution sound.
+
+Single signatures are checked and made by native host code
+(`csrc/host/ed25519.cc`, built by g++ through `ops/_build.host_lib` at
+first use), where the JAX package uses the `cryptography` wheel. A build
+or load failure raises; nothing falls back to the Python oracle.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 from dataclasses import dataclass, field
 from typing import List, Optional, Protocol, Tuple, runtime_checkable
@@ -25,6 +31,56 @@ ED25519_KEY_TYPE = "ed25519"
 
 def address_from_pubkey_bytes(b: bytes) -> bytes:
     return hashlib.sha256(b).digest()[:ADDRESS_SIZE]
+
+
+_NATIVE = None
+
+
+def native_ed25519() -> ctypes.CDLL:
+    """The library of `csrc/host/ed25519.cc`, built and loaded on first
+    use (raises with the compiler's output when it does not build).
+    `host_lib` serialises the build; declaring the signatures twice from
+    two threads is harmless."""
+    global _NATIVE
+    if _NATIVE is None:
+        from ..ops import _build
+        lib = _build.host_lib("ed25519")
+        p, sz = ctypes.c_char_p, ctypes.c_size_t
+        lib.cbt_sha512.argtypes = [p, sz, p]
+        lib.cbt_sha512.restype = None
+        lib.cbt_ed25519_pubkey.argtypes = [p, p]
+        lib.cbt_ed25519_pubkey.restype = None
+        lib.cbt_ed25519_sign.argtypes = [p, p, p, sz, p]
+        lib.cbt_ed25519_sign.restype = None
+        lib.cbt_ed25519_verify.argtypes = [p, p, sz, p]
+        lib.cbt_ed25519_verify.restype = ctypes.c_int
+        _NATIVE = lib
+    return _NATIVE
+
+
+def native_verify(pub: bytes, msg: bytes, sig: bytes) -> bool:
+    """Strict, cofactorless RFC 8032 verify in native code. Its accepts
+    are a subset of ZIP-215's: a reject may still be ZIP-215-valid
+    (non-canonical encodings, small- or mixed-order components)."""
+    if len(pub) != 32 or len(sig) != 64:
+        return False
+    return native_ed25519().cbt_ed25519_verify(
+        bytes(pub), bytes(msg), len(msg), bytes(sig)) == 1
+
+
+def native_pubkey(seed: bytes) -> bytes:
+    out = ctypes.create_string_buffer(32)
+    native_ed25519().cbt_ed25519_pubkey(bytes(seed), out)
+    return out.raw
+
+
+def native_sign(seed: bytes, pub: bytes, msg: bytes) -> bytes:
+    """RFC 8032 signature of msg; `pub` must be the seed's public key.
+    Byte-identical with `ref.sign`."""
+    out = ctypes.create_string_buffer(64)
+    native_ed25519().cbt_ed25519_sign(bytes(seed), bytes(pub), bytes(msg),
+                                      len(msg), out)
+    return out.raw
 
 
 @runtime_checkable
@@ -68,32 +124,34 @@ class Ed25519PubKey:
         return ED25519_KEY_TYPE
 
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
-        """Single-signature ZIP-215 verify through the oracle."""
+        """Single-signature ZIP-215 verify, the consensus vote-intake
+        hot path (reference types/vote.go:235). The native strict verify
+        decides every accept; a reject is re-checked against the ZIP-215
+        oracle, so the verdict is the oracle's on every input. Honest
+        traffic never reaches the oracle."""
+        if native_verify(self.raw, msg, sig):
+            return True
         return ref.verify(self.raw, msg, sig, zip215=True)
 
 
 @dataclass(frozen=True)
 class Ed25519PrivKey:
-    """RFC 8032 signing key. The expanded key (clamped scalar, nonce
-    prefix, public key) is derived from the seed on first use and kept
-    on the key: `ref.sign` recomputes the public key, a full scalar
-    multiplication, for every message. Signatures are byte-identical
-    with `ref.sign`."""
+    """RFC 8032 signing key, signing natively. The public key is derived
+    from the seed on first use and kept on the key, so a signature costs
+    one fixed-base multiplication. Signatures are byte-identical with
+    `ref.sign`."""
     seed: bytes
-    _expanded: Optional[Tuple[int, bytes, bytes]] = field(
+    _pub: Optional[bytes] = field(
         default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if len(self.seed) != 32:
             raise ValueError("ed25519 seed must be 32B")
 
-    def _expand(self) -> Tuple[int, bytes, bytes]:
-        if self._expanded is None:
-            h = hashlib.sha512(self.seed).digest()
-            a = ref.clamp(h)
-            pub = ref.pt_compress(ref.pt_mul(a, ref.BASE))
-            object.__setattr__(self, "_expanded", (a, h[32:], pub))
-        return self._expanded
+    def _pub_bytes(self) -> bytes:
+        if self._pub is None:
+            object.__setattr__(self, "_pub", native_pubkey(self.seed))
+        return self._pub
 
     @classmethod
     def generate(cls, rng=None) -> "Ed25519PrivKey":
@@ -102,14 +160,10 @@ class Ed25519PrivKey:
                    else bytes(rng.randrange(256) for _ in range(32)))
 
     def sign(self, msg: bytes) -> bytes:
-        a, prefix, pub = self._expand()
-        r = ref.sc_reduce(hashlib.sha512(prefix + msg).digest())
-        rb = ref.pt_compress(ref.pt_mul(r, ref.BASE))
-        k = ref.sc_reduce(hashlib.sha512(rb + pub + msg).digest())
-        return rb + ((r + k * a) % ref.L).to_bytes(32, "little")
+        return native_sign(self.seed, self._pub_bytes(), msg)
 
     def pub_key(self) -> Ed25519PubKey:
-        return Ed25519PubKey(self._expand()[2])
+        return Ed25519PubKey(self._pub_bytes())
 
     def bytes_(self) -> bytes:
         return self.seed

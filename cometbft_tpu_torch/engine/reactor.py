@@ -22,7 +22,11 @@ status response's `sealable` field advertises the provider tip so an
 adopted-but-not-backfilled node is already a useful upstream.
 
 Copy of `cometbft_tpu/engine/reactor.py` over the port's `sealsync`
-(`SealTuple`, `SealProvider`).
+(`SealTuple`, `SealProvider`). What differs: a block request still
+unanswered when its peer is removed (a ban, a dropped link) is sent again
+to another peer, as the reference's pool redoes its requesters
+(pool.go RemovePeer); the JAX package leaves it to its 20 s timeout, and
+the pool then reads the height as missing and the sync stalls.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ class BlocksyncNetReactor:
         self._peer_status: Dict[str, int] = {}
         self._peer_seal_status: Dict[str, int] = {}
         self._pending: Dict[int, List[Future]] = {}
+        self._asked: Dict[int, str] = {}   # height -> peer id asked last
         self._pending_seals: Dict[int, List[Future]] = {}
         self._lock = threading.Lock()
         # seconds spent in Block.decode of received blocks, and their
@@ -81,10 +86,22 @@ class BlocksyncNetReactor:
         peer.try_send(BLOCKSYNC_CHANNEL, _msg(_STATUS_REQ))
 
     def remove_peer(self, peer, reason: str) -> None:
+        redo = []
         with self._lock:
             self._peers.pop(peer.id, None)
             self._peer_status.pop(peer.id, None)
             self._peer_seal_status.pop(peer.id, None)
+            for h, pid in list(self._asked.items()):
+                if pid != peer.id or not self._pending.get(h):
+                    continue
+                nxt = self._pick_peer(h)
+                if nxt is None:
+                    break
+                self._asked[h] = nxt.id
+                redo.append((h, nxt))
+        for h, nxt in redo:
+            nxt.try_send(BLOCKSYNC_CHANNEL,
+                         _msg(_BLOCK_REQ, proto.f_varint(1, h)))
 
     def receive(self, channel_id: int, peer, raw: bytes) -> None:
         kind, body = raw[0], raw[1:]
@@ -179,6 +196,7 @@ class BlocksyncNetReactor:
     def _resolve(self, height: int, result) -> None:
         with self._lock:
             futs = self._pending.pop(height, [])
+            self._asked.pop(height, None)
         for fut in futs:
             if not fut.done():
                 fut.set_result(result)
@@ -236,21 +254,28 @@ class BlocksyncNetReactor:
         except Exception:
             return None
 
+    def _pick_peer(self, height: int):
+        """The peer asked for `height`: one whose status covers it
+        (height + 1: the tip's synthetic successor), spread by height,
+        or any peer; None when peerless. Caller holds the lock."""
+        candidates = [p for p in self._peers.values()
+                      if self._peer_status.get(p.id, 0) + 1 >= height]
+        if not candidates:
+            candidates = list(self._peers.values())
+        return candidates[height % len(candidates)] if candidates else None
+
     def request_block_async(self, height: int) -> Optional[Future]:
         """Send a BlockRequest to the best-known peer and return the
         Future its response will resolve (None when peerless). The
         non-blocking half of request_block — simnet's cooperative
         source polls the future between virtual delivery events."""
         with self._lock:
-            candidates = [p for p in self._peers.values()
-                          if self._peer_status.get(p.id, 0) + 1 >= height]
-            if not candidates:
-                candidates = list(self._peers.values())
-            if not candidates:
+            peer = self._pick_peer(height)
+            if peer is None:
                 return None
-            peer = candidates[height % len(candidates)]
             fut: Future = Future()
             self._pending.setdefault(height, []).append(fut)
+            self._asked[height] = peer.id
         peer.try_send(BLOCKSYNC_CHANNEL,
                       _msg(_BLOCK_REQ, proto.f_varint(1, height)))
         return fut

@@ -135,8 +135,8 @@ class CheckTicket:
 
 
 def _native_verify(lanes: Sequence[Lane]) -> Tuple[List[bool], str]:
-    """Per-signature host verify (the port's single-signature verify,
-    pure Python: ROADMAP.md Queue 3 item 2)."""
+    """Per-signature host verify (the port's native single-signature
+    verify, `csrc/host/ed25519.cc`, for ed25519 lanes)."""
     return [lane.pk.verify_signature(lane.msg, lane.sig)
             for lane in lanes], "cpu"
 

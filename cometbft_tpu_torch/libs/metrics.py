@@ -4,13 +4,13 @@ per-package metrics.go structs, e.g. internal/consensus/metrics.go:34).
 Counters, gauges, and histograms with label support, rendered in the
 Prometheus text exposition format. `Registry.expose()` plugs into any
 HTTP handler (config [instrumentation], reference config.go:1378-1384).
-Metrics structs are GENERATED in the JAX package (tools/metricsgen.py
-from libs/metrics_defs.py into libs/metrics_gen.py); the port keeps a
-copy of the structs it uses in its own `libs/metrics_gen.py`.
+Metrics structs come in two flavors: hand-written (ConsensusMetrics
+below, which consensus/state.py fills) and GENERATED in the JAX package
+(tools/metricsgen.py from libs/metrics_defs.py into libs/metrics_gen.py);
+the port keeps a copy of the generated structs it uses in its own
+`libs/metrics_gen.py`.
 
-Copy of `cometbft_tpu/libs/metrics.py` (the port keeps its own). What
-differs: the hand-written `ConsensusMetrics` struct is left out until
-consensus is ported (ROADMAP.md Queue 1: the host-only layers).
+Copy of `cometbft_tpu/libs/metrics.py` (the port keeps its own).
 """
 
 from __future__ import annotations
@@ -193,3 +193,26 @@ class Registry:
         for m in self._metrics:
             lines.extend(m.expose())
         return "\n".join(lines) + "\n"
+
+
+class ConsensusMetrics:
+    """The reference's consensus metrics struct
+    (internal/consensus/metrics.go), constructed over a Registry."""
+
+    def __init__(self, reg: Registry):
+        self.height = reg.gauge("consensus_height", "Committed height")
+        self.rounds = reg.counter("consensus_rounds",
+                                  "Rounds entered", ["reason"])
+        self.round_duration = reg.histogram(
+            "consensus_round_duration_seconds",
+            "Time spent per consensus round")
+        self.block_processing = reg.histogram(
+            "consensus_block_processing_seconds",
+            "ApplyBlock wall time")
+        self.validators = reg.gauge("consensus_validators",
+                                    "Validator-set size")
+        self.byzantine_validators = reg.counter(
+            "consensus_byzantine_validators",
+            "Conflicting votes observed")
+        self.sigs_verified = reg.counter(
+            "crypto_sigs_verified", "Signatures verified", ["path"])

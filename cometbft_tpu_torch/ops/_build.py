@@ -9,10 +9,11 @@ flags, so an edited source is rebuilt and an unchanged one is reused
 within a checkout. A failed build raises with the compiler's output:
 there is no fallback behind it.
 
-The port's host C++ sources (`csrc/host/*.cc`: the native log DB and the
-ChaCha20-Poly1305 of the p2p link) are built the same way by g++ into
-the same directory (`host_lib`), each at its first use, named by a
-digest of its source and flags. nvcc never sees them.
+The port's host C++ sources (`csrc/host/*.cc`: the native log DB, the
+ChaCha20-Poly1305 of the p2p link and the single-signature ed25519) are
+built the same way by g++ into the same directory (`host_lib`), each at
+its first use, named by a digest of its source, the `csrc/` headers it
+includes and its flags. nvcc never sees them.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ _LIBS: list = []          # keeps the CDLL handles alive
 BUILD_LOG: dict = {}      # name -> {"seconds": s, "output": compiler text}
 
 HOST_SRC = CSRC / "host"
-GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+# -O3: the ed25519 field products want the loops of fe25519.cuh
+# unrolled, which -O3 does and -O2 does not
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _HOST_LIBS: dict = {}     # host source name -> ctypes.CDLL
 
 
@@ -123,8 +126,12 @@ def kernel_fn(name: str):
 
 
 def _host_target(name: str) -> Path:
+    src = (HOST_SRC / f"{name}.cc").read_bytes()
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update((HOST_SRC / f"{name}.cc").read_bytes())
+    h.update(src)
+    for line in src.decode().splitlines():
+        if line.startswith('#include "../'):
+            h.update((CSRC / line.split('"')[1][3:]).read_bytes())
     return BUILD_DIR / f"host-{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -137,11 +137,10 @@ class BlockStore:
         return Commit.decode(raw) if raw is not None else None
 
     def load_extended_commit(self, height: int):
-        """reference store.go LoadBlockExtendedCommit. Vote extensions
-        (types/extended_commit) are not ported yet."""
-        raise NotImplementedError(
-            "extended commits are not ported yet (ROADMAP.md Queue 1: "
-            "host-only layers)")
+        """reference store.go LoadBlockExtendedCommit."""
+        from ..types.extended_commit import ExtendedCommit
+        raw = self._db.get(_h(b"EC:", height))
+        return ExtendedCommit.decode(raw) if raw is not None else None
 
     def load_seen_commit(self, height: int) -> Optional[Commit]:
         raw = self._db.get(_h(b"SC:", height))

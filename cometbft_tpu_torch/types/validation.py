@@ -29,7 +29,11 @@ from .validator import ValidatorSet
 # is a cheap same-thread CPU MSM; here "batch" means a device dispatch, so
 # small commits — consensus rounds, tiny validator sets — go through the
 # single-signature path instead, and the kernels serve the bulk tiles
-# (blocksync, light client) they were built for. The JAX package's value.
+# (blocksync, light client) they were built for. The JAX package's value,
+# kept for its semantics: against the native host verify (~0.27 ms a
+# signature on an H100's host) a 200-lane flush of 0.4-0.9 s no longer
+# pays for itself, and the crossover is still to be measured (ROADMAP.md
+# Queue 2 item 10).
 BATCH_VERIFY_THRESHOLD = 64
 
 

@@ -352,3 +352,32 @@ def test_seal_adoption_over_p2p(tmp_path):
         jb, jh, jc = jstore.load_adopted_seal(h)
         assert (pb.encode(), ph.encode(), pc.encode()) == \
             (jb.encode(), jh.encode(), jc.encode())
+
+
+def test_unanswered_request_goes_to_another_peer_when_its_peer_leaves():
+    """A block request whose peer is removed before it answers (a ban, a
+    dropped link) is asked again of another peer at once (reference
+    pool.go RemovePeer redoes its requesters), where the JAX package's
+    reactor leaves it to its 20 s timeout; removing a peer that holds no
+    request resends nothing."""
+    class FakePeer:
+        def __init__(self, pid):
+            self.id, self.sent = pid, []
+
+        def try_send(self, ch, raw):
+            self.sent.append(raw)
+            return True
+
+    net = preactor.BlocksyncNetReactor(PStore(pkv.MemDB()))
+    a, b, c = FakePeer("a"), FakePeer("b"), FakePeer("c")
+    for p in (a, b, c):
+        net.add_peer(p)
+    fut = net.request_block_async(13)          # 13 % 3: asks b
+    want = bytes([3]) + bytes([8, 13])          # BlockRequest{height=13}
+    assert b.sent[-1] == want and a.sent == [bytes([1])]
+    net.remove_peer(a, "unrelated")
+    assert a.sent == [bytes([1])] and c.sent == [bytes([1])]
+    net.remove_peer(b, "banned")                 # c, the one left
+    assert c.sent[-1] == want
+    net._resolve(13, ("block", "c"))
+    assert fut.result(timeout=1) == ("block", "c")
