@@ -17,10 +17,7 @@ FileDB block stores under DIR over TCP on the CPU (`serve_peer`).
 
 Phases; any failure exits non-zero:
 1. Build the six CUDA kernels from cometbft_tpu_torch/csrc/ (one nvcc
-   per source, all started together), and beside them the one-thread
-   yardstick kernels of ONE_THREAD_CU (the parent's decompression and
-   addition, from the same fe25519.cuh) and the BLS kernels' previous
-   design, BLS_PREV_CU; then the host C++ sources (csrc/host: the native
+   per source, all started together); then the host C++ sources (csrc/host: the native
    log DB, the p2p link's ChaCha20-Poly1305 and the single-signature
    ed25519 that signs and checks votes) with g++; print the
    build seconds, the registers and spills ptxas reports, and the card's
@@ -51,9 +48,9 @@ Phases; any failure exits non-zero:
    masking of its ragged edge runs, and window sums at 3,000 lanes
    (three chunks, the last part empty); the epilogue's cases again on
    the partials of those 3,000 and 200 lanes (M = 4, and M = 1, the M
-   of every light-client flush and mixed-set bucket). The yardsticks
-   must agree with the kernels. Integers allow no tolerance: every error must be 0.
-   Then every kernel, the yardsticks, the decompression at 8,192 lanes
+   of every light-client flush and mixed-set bucket). Integers allow no
+   tolerance: every error must be 0.
+   Then every kernel, the decompression at 8,192 lanes
    and the epilogue at M = 128 run under one torch.profiler session: one
    counted call each (the launch counter must equal the profiler's count
    of the source's `__global__` functions), then 20 rounds of one call
@@ -63,7 +60,7 @@ Phases; any failure exits non-zero:
    part of the RLC verify, and (under torch.profiler) the kernel
    launches and device-busy time of the RLC verify and of the per-lane
    verify. Then the two BLS kernels (ops/bls12.py) against their plain
-   versions and their previous design at buckets 4, 16 and 64, exactly
+   versions at buckets 4, 16 and 64, exactly
    (final Fq12 limbs and verdicts): `bls_miller_finalexp` on line
    coefficients of the canary items, clean 2-pair commit items, tampered
    aggregates, a 1-pair item, an item with no pairs (identity lines), a
@@ -73,8 +70,10 @@ Phases; any failure exits non-zero:
    `bls_hard_pow` on the same lanes' Miller products after the easy part
    (0 for the zero lane), and once at a 40-bit exponent; the verdicts
    against the host oracle; each kernel timed per bucket (torch.profiler
-   device time in turns with the previous design, CUDA events around a
-   call, the plain call).
+   device time, CUDA events around a call, the plain call). The previous
+   designs (one thread a lane for decompression and addition, the BLS
+   kernels before their redesign), once built beside the port's as
+   yardsticks, are gone: their times stay in PERF.md.
 4. The paths, each with the launch counters zeroed just before it and
    read just after:
    - the BatchVerifier seam (`create_batch_verifier` ->
@@ -229,20 +228,36 @@ Phases; any failure exits non-zero:
      `VoteSet.add_votes` of the 48th height's 200 precommits on the card
      with one tampered: one flush, the per-vote verdicts; and the native
      ed25519's host ms a signature beside the oracle's;
+   - node boot (`run_node_boot`, through the entry points a user runs):
+     (a) the 121-block, 200-validator chain written into a node home
+     (config.toml, genesis.json, FileDB block and state stores at 121)
+     and served by `python -m cometbft_tpu_torch.cmd.main start --device
+     cpu` in a child process (CUDA hidden; its handshake replays the 121
+     blocks into a fresh kvstore); a laggard made by `cmd.main init`,
+     given the chain's genesis and the server as its persistent peer,
+     built as `Node(cfg, device="cuda")` (block sync on, depth 4, batch
+     `_device_batch_size(200)` = 4,096, tile 16) and started: its boot
+     sync runs the RLC kernels (FlushCount: launches = launches_per_call
+     x flushes, the shared signature cache reset first, no trip, drain
+     or boot error), then consensus runs at 122; its blocks and app hash
+     must equal the generator's, and `status` (less identity and clock
+     fields), `block`, `commit` and `validators` at 121 from its RPC
+     must equal the server's; (b) a live net of 4 `Node`s on cuda from
+     `cmd.main testnet` homes commits 3 heights, then 8 txs through
+     `broadcast_tx_commit` on one node, read back with `abci_query` and
+     `tx_search` on another;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
 5. Print the {"kernels": [...]} line (launches from the paths, device
-   and call times, bounds, and for the two redesigned per-lane kernels
-   the one-thread parent's device time from the same rounds, and for the
-   BLS kernels the previous design's;
-   `rlc_window_sums` counts two launches a call, and the launches of the
+   and call times, bounds; `rlc_window_sums` counts two launches a call, and the launches of the
    pipelined syncs, of the device server's paths, of the light client,
    of the mixed set, of the farm and of tx admission; the BLS kernels'
    rows with the launches of their own paths, the aggregated catch-up
    and the multi-group `verify_commit`, and of seal sync's passes; the
    p2p phase's launches of each; the consensus phase's launches of the
-   RLC kernels and of the BLS kernels), a timing line with the catch-up
+   RLC kernels and of the BLS kernels; the node boot's launches), a
+   `node boot:` line, a timing line with the catch-up
    sigs/s and
    where the sync's time goes, the pipelined depths' medians and
    spreads, the server's stats, the light client's headers/s and the
@@ -379,531 +394,6 @@ INGEST_BANNED = b"banned-"
 INGEST_MEMPOOL = 10_000
 INGEST_SHED_EXTRA = 321   # 7,872 + 321 = 8,193 distinct valid envelopes
 
-# The one-thread designs that csrc/pt_decompress.cu and csrc/pt_add.cu
-# replaced (one lane per thread, 128-thread blocks, fe25519.cuh's
-# ge_decompress and ge_add): built here from the same header and timed
-# in turns with the kernels as the parent's yardstick. The port never
-# calls them.
-ONE_THREAD_CU = r"""
-#include <cuda_runtime.h>
-#include "fe25519.cuh"
-
-__global__ void __launch_bounds__(128)
-pt_decompress_one_thread_kernel(const int32_t* __restrict__ enc,
-                                int32_t* __restrict__ pt,
-                                uint8_t* __restrict__ ok, int n) {
-  int lane = blockIdx.x * 128 + threadIdx.x;
-  if (lane >= n) return;
-  ge p;
-  bool valid = ge_decompress(enc + lane, n, &p);
-  ge_store16(pt + lane, n, p);
-  ok[lane] = valid ? 1 : 0;
-}
-
-__global__ void __launch_bounds__(128)
-pt_add_one_thread_kernel(const int32_t* __restrict__ p,
-                         const int32_t* __restrict__ q,
-                         int32_t* __restrict__ out, int n) {
-  int lane = blockIdx.x * 128 + threadIdx.x;
-  if (lane >= n) return;
-  ge_store16(out + lane, n,
-             ge_add(ge_load16(p + lane, n), ge_load16(q + lane, n)));
-}
-
-extern "C" int cbt_pt_decompress_one_thread(const int32_t* enc, int32_t* pt,
-                                            uint8_t* ok, int n, void* s) {
-  pt_decompress_one_thread_kernel<<<(n + 127) / 128, 128, 0,
-                                    (cudaStream_t)s>>>(enc, pt, ok, n);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cbt_pt_add_one_thread(const int32_t* p, const int32_t* q,
-                                     int32_t* out, int n, void* s) {
-  pt_add_one_thread_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)s>>>(
-      p, q, out, n);
-  return (int)cudaGetLastError();
-}
-"""
-ONE_THREAD_FNS = {"pt_decompress_tiled": "pt_decompress_one_thread_kernel",
-                  "pt_add_tiled": "pt_add_one_thread_kernel"}
-
-
-class OneThread:
-    """The yardstick kernels of ONE_THREAD_CU: the constructor starts
-    nvcc (beside the port's own builds), `load` waits for it and binds
-    both."""
-
-    def __init__(self, build):
-        self.dir = build.BUILD_DIR
-        self.dir.mkdir(parents=True, exist_ok=True)
-        src = self.dir / "one_thread.cu"
-        src.write_text(ONE_THREAD_CU)
-        self.lib_path = self.dir / "one_thread.so"
-        self.proc = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-             "-I", str(build.CSRC), "-o", str(self.lib_path), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        self.launches = {"pt_decompress_tiled": 0, "pt_add_tiled": 0}
-
-    def load(self) -> str:
-        text, _ = self.proc.communicate()
-        if self.proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the one-thread yardstick:\n"
-                               f"{text}")
-        lib = ctypes.CDLL(str(self.lib_path))
-        self._fns = {}
-        for key, sym in (("pt_decompress_tiled",
-                          "cbt_pt_decompress_one_thread"),
-                         ("pt_add_tiled", "cbt_pt_add_one_thread")):
-            fn = getattr(lib, sym)
-            fn.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int,
-                                                     ctypes.c_void_p)
-            fn.restype = ctypes.c_int
-            self._fns[key] = fn
-        self._lib = lib
-        return text
-
-    def _call(self, torch, key, a, b, c, n) -> None:
-        rc = self._fns[key](a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
-                            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"one-thread {key} launch failed: {rc}")
-        self.launches[key] += 1
-
-    def pt_decompress(self, torch, enc):
-        """(32, n) int32 -> (points (4, 16, n), valid (n,) bool)."""
-        n = enc.shape[-1]
-        pt = torch.empty((4, 16, n), dtype=torch.int32, device=enc.device)
-        ok = torch.empty((n,), dtype=torch.bool, device=enc.device)
-        self._call(torch, "pt_decompress_tiled", enc, pt, ok, n)
-        return pt, ok
-
-    def pt_add(self, torch, p, q):
-        out = torch.empty_like(p)
-        self._call(torch, "pt_add_tiled", p, q, out, p.shape[-1])
-        return out
-
-
-# The BLS kernels' previous design (one block of 64 threads a lane, an Fq2
-# product of 3 serial 64-bit-accumulator CIOS products a thread, every
-# squaring a general product, the inversion on one thread): the two kernels
-# and fq381.cuh's functions and block section as they stood before the
-# redesign, comments left out and the kernels renamed. Built here and timed
-# in turns with the kernels as the parent's yardstick; the port never calls
-# them.
-BLS_PREV_CU = r"""
-#include <cuda_runtime.h>
-#include <stdint.h>
-#if defined(__CUDACC__)
-#define CBT_FN __host__ __device__ __forceinline__
-#define CBT_CALL __host__ __device__ __noinline__
-#else
-#define CBT_FN static inline
-#define CBT_CALL static
-#endif
-#define FQ_WORDS 12
-#define FQ_N0 0xfffcfffdu
-#define FQ_BITS 381
-struct fq {
-  uint32_t w[FQ_WORDS];
-};
-struct fq2 {
-  fq c0, c1;
-};
-CBT_FN uint32_t fq_p_word(int i) {
-  const uint32_t p[FQ_WORDS] = {
-      0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
-      0xf6b0f624u, 0x6730d2a0u, 0xf38512bfu, 0x64774b84u,
-      0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-  return p[i];
-}
-CBT_FN uint32_t fq_pm2_word(int i) {
-  return i == 0 ? 0xffffaaa9u : fq_p_word(i);
-}
-CBT_FN fq fq_zero() {
-  fq r;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) r.w[k] = 0;
-  return r;
-}
-CBT_FN fq fq_one() {
-  fq r = {{0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
-           0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
-           0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u}};
-  return r;
-}
-CBT_FN fq fq_gamma2(int i) {
-  const uint32_t g[6][FQ_WORDS] = {
-      {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau,
-       0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u,
-       0xfa80e493u, 0x15f65ec3u},
-      {0x798dba3au, 0xecfb361bu, 0x91865a2cu, 0xc100ddb8u, 0x232bda8eu,
-       0x0ec08ff1u, 0xf1ca4721u, 0xd5c13cc6u, 0xbf7b5c04u, 0x47222a47u,
-       0xe51c5f59u, 0x0110f184u},
-      {0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu, 0xc61577f7u,
-       0x16a8ca3au, 0x74fd029bu, 0xc26a2ff8u, 0x60701c6eu, 0x3636b766u,
-       0x241b6160u, 0x051ba4abu},
-      {0xfffcaaaeu, 0x43f5ffffu, 0xed47fffdu, 0x32b7fff2u, 0xa2e99d69u,
-       0x07e83a49u, 0x8332bb7au, 0xeca8f331u, 0xa0f4c069u, 0xef148d1eu,
-       0x3eff0206u, 0x040ab326u},
-      {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u,
-       0x587042afu, 0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu,
-       0x54638741u, 0x18f02065u},
-      {0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u, 0x309b7e2cu,
-       0x50880866u, 0x7e881024u, 0xa20d1b8cu, 0xe2db9068u, 0x14e4f04fu,
-       0x1564853au, 0x14e56d3fu}};
-  fq r;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) r.w[k] = g[i][k];
-  return r;
-}
-CBT_FN fq fq_cond_sub_p(const fq& t) {
-  fq d;
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) {
-    uint64_t v = (uint64_t)t.w[k] - fq_p_word(k) - borrow;
-    d.w[k] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  return borrow ? t : d;
-}
-CBT_FN fq fq_add(const fq& a, const fq& b) {
-  fq s;
-  uint64_t c = 0;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) {
-    c += (uint64_t)a.w[k] + b.w[k];
-    s.w[k] = (uint32_t)c;
-    c >>= 32;
-  }
-  return fq_cond_sub_p(s);
-}
-CBT_FN fq fq_sub(const fq& a, const fq& b) {
-  fq d;
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) {
-    uint64_t v = (uint64_t)a.w[k] - b.w[k] - borrow;
-    d.w[k] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  if (borrow) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int k = 0; k < FQ_WORDS; k++) {
-      c += (uint64_t)d.w[k] + fq_p_word(k);
-      d.w[k] = (uint32_t)c;
-      c >>= 32;
-    }
-  }
-  return d;
-}
-CBT_FN fq fq_neg(const fq& a) { return fq_sub(fq_zero(), a); }
-CBT_FN fq fq_mul(const fq& a, const fq& b) {
-  uint32_t t[FQ_WORDS + 2];
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS + 2; k++) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < FQ_WORDS; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < FQ_WORDS; j++) {
-      c += (uint64_t)a.w[j] * b.w[i] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[FQ_WORDS];
-    t[FQ_WORDS] = (uint32_t)c;
-    t[FQ_WORDS + 1] = (uint32_t)(c >> 32);
-    const uint32_t m = t[0] * FQ_N0;
-    c = ((uint64_t)m * fq_p_word(0) + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < FQ_WORDS; j++) {
-      c += (uint64_t)m * fq_p_word(j) + t[j];
-      t[j - 1] = (uint32_t)c;
-      c >>= 32;
-    }
-    c += t[FQ_WORDS];
-    t[FQ_WORDS - 1] = (uint32_t)c;
-    t[FQ_WORDS] = t[FQ_WORDS + 1] + (uint32_t)(c >> 32);
-  }
-  fq r;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) r.w[k] = t[k];
-  return fq_cond_sub_p(r);
-}
-CBT_FN bool fq_eq(const fq& a, const fq& b) {
-  uint32_t d = 0;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) d |= a.w[k] ^ b.w[k];
-  return d == 0;
-}
-CBT_CALL fq fq_mul_call(const fq& a, const fq& b) { return fq_mul(a, b); }
-CBT_CALL fq fq_inv(const fq& a) {
-  fq acc = a;
-  for (int i = FQ_BITS - 2; i >= 0; i--) {
-    acc = fq_mul_call(acc, acc);
-    if ((fq_pm2_word(i >> 5) >> (i & 31)) & 1u) acc = fq_mul_call(acc, a);
-  }
-  return acc;
-}
-CBT_FN fq fq_load16(const int32_t* base, long stride) {
-  fq r;
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++)
-    r.w[k] = ((uint32_t)base[(2 * k) * stride] & 0xffffu) |
-             ((uint32_t)base[(2 * k + 1) * stride] << 16);
-  return r;
-}
-CBT_FN void fq_store16(int32_t* base, long stride, const fq& a) {
-#pragma unroll
-  for (int k = 0; k < FQ_WORDS; k++) {
-    base[(2 * k) * stride] = (int32_t)(a.w[k] & 0xffffu);
-    base[(2 * k + 1) * stride] = (int32_t)(a.w[k] >> 16);
-  }
-}
-CBT_FN fq2 fq2_zero() {
-  fq2 r = {fq_zero(), fq_zero()};
-  return r;
-}
-CBT_FN fq2 fq2_add(const fq2& a, const fq2& b) {
-  fq2 r = {fq_add(a.c0, b.c0), fq_add(a.c1, b.c1)};
-  return r;
-}
-CBT_FN fq2 fq2_sub(const fq2& a, const fq2& b) {
-  fq2 r = {fq_sub(a.c0, b.c0), fq_sub(a.c1, b.c1)};
-  return r;
-}
-CBT_FN fq2 fq2_neg(const fq2& a) {
-  fq2 r = {fq_neg(a.c0), fq_neg(a.c1)};
-  return r;
-}
-CBT_FN fq2 fq2_mul_xi(const fq2& a) {
-  fq2 r = {fq_sub(a.c0, a.c1), fq_add(a.c0, a.c1)};
-  return r;
-}
-CBT_FN fq2 fq2_mul(const fq2& a, const fq2& b) {
-  const fq v0 = fq_mul(a.c0, b.c0);
-  const fq v1 = fq_mul(a.c1, b.c1);
-  const fq s = fq_mul(fq_add(a.c0, a.c1), fq_add(b.c0, b.c1));
-  fq2 r = {fq_sub(v0, v1), fq_sub(fq_sub(s, v0), v1)};
-  return r;
-}
-CBT_CALL fq2 fq2_mul_call(const fq2& a, const fq2& b) {
-  return fq2_mul(a, b);
-}
-CBT_CALL fq2 fq2_inv(const fq2& a) {
-  const fq ni = fq_inv(fq_add(fq_mul_call(a.c0, a.c0),
-                              fq_mul_call(a.c1, a.c1)));
-  fq2 r = {fq_mul_call(a.c0, ni), fq_neg(fq_mul_call(a.c1, ni))};
-  return r;
-}
-CBT_FN bool fq2_is(const fq2& a, const fq& c0) {
-  return fq_eq(a.c0, c0) && fq_eq(a.c1, fq_zero());
-}
-struct fq6 {
-  fq2 c[3];
-};
-CBT_CALL fq6 fq6_mul(const fq6& a, const fq6& b) {
-  fq2 t[5];
-  for (int k = 0; k < 5; k++) t[k] = fq2_zero();
-  for (int i = 0; i < 3; i++)
-    for (int j = 0; j < 3; j++) t[i + j] = fq2_add(t[i + j], fq2_mul_call(a.c[i], b.c[j]));
-  fq6 r;
-  r.c[0] = fq2_add(t[0], fq2_mul_xi(t[3]));
-  r.c[1] = fq2_add(t[1], fq2_mul_xi(t[4]));
-  r.c[2] = t[2];
-  return r;
-}
-CBT_CALL fq6 fq6_inv(const fq6& a) {
-  const fq2 big_a = fq2_sub(fq2_mul_call(a.c[0], a.c[0]),
-                            fq2_mul_xi(fq2_mul_call(a.c[1], a.c[2])));
-  const fq2 big_b = fq2_sub(fq2_mul_xi(fq2_mul_call(a.c[2], a.c[2])),
-                            fq2_mul_call(a.c[0], a.c[1]));
-  const fq2 big_c = fq2_sub(fq2_mul_call(a.c[1], a.c[1]), fq2_mul_call(a.c[0], a.c[2]));
-  const fq2 f = fq2_add(fq2_mul_call(a.c[0], big_a),
-                        fq2_mul_xi(fq2_add(fq2_mul_call(a.c[1], big_c),
-                                           fq2_mul_call(a.c[2], big_b))));
-  const fq2 fi = fq2_inv(f);
-  fq6 r;
-  r.c[0] = fq2_mul_call(big_a, fi);
-  r.c[1] = fq2_mul_call(big_b, fi);
-  r.c[2] = fq2_mul_call(big_c, fi);
-  return r;
-}
-CBT_CALL void f12_inv_serial(const fq2* a, fq2* out) {
-  fq6 big_a, big_b;
-  for (int k = 0; k < 3; k++) {
-    big_a.c[k] = a[2 * k];
-    big_b.c[k] = a[2 * k + 1];
-  }
-  const fq6 aa = fq6_mul(big_a, big_a);
-  const fq6 bb = fq6_mul(big_b, big_b);
-  fq6 den;
-  den.c[0] = fq2_sub(aa.c[0], fq2_mul_xi(bb.c[2]));
-  den.c[1] = fq2_sub(aa.c[1], bb.c[0]);
-  den.c[2] = fq2_sub(aa.c[2], bb.c[1]);
-  const fq6 di = fq6_inv(den);
-  fq6 nb;
-  for (int k = 0; k < 3; k++) nb.c[k] = fq2_neg(big_b.c[k]);
-  const fq6 ia = fq6_mul(big_a, di);
-  const fq6 ib = fq6_mul(nb, di);
-  for (int k = 0; k < 3; k++) {
-    out[2 * k] = ia.c[k];
-    out[2 * k + 1] = ib.c[k];
-  }
-}
-#if defined(__CUDACC__) || defined(CBT_BLOCK_SHIM)
-#define BLS_THREADS 64
-__device__ __forceinline__ int bls_deg(int ny, int jj) {
-  return ny == 6 ? jj : (jj == 0 ? 0 : (jj == 1 ? 3 : 5));
-}
-__device__ __noinline__ void f12_mul_block(fq2* out, const fq2* x,
-                                           const fq2* y, int ny, fq2* prod) {
-  const int t = threadIdx.x;
-  if (t < 6 * ny) prod[t] = fq2_mul(x[t / ny], y[t % ny]);
-  __syncthreads();
-  if (t < 12) {
-    const int k = t >> 1;
-    fq lo = fq_zero(), hi0 = fq_zero(), hi1 = fq_zero();
-    for (int jj = 0; jj < ny; jj++) {
-      const int d = bls_deg(ny, jj);
-      const int il = k - d, ih = k + 6 - d;
-      if (il >= 0 && il < 6) {
-        const fq2& p = prod[il * ny + jj];
-        lo = fq_add(lo, (t & 1) ? p.c1 : p.c0);
-      }
-      if (ih >= 0 && ih < 6) {
-        const fq2& p = prod[ih * ny + jj];
-        hi0 = fq_add(hi0, p.c0);
-        hi1 = fq_add(hi1, p.c1);
-      }
-    }
-    const fq v = fq_add(lo, (t & 1) ? fq_add(hi0, hi1) : fq_sub(hi0, hi1));
-    if (t & 1) out[k].c1 = v;
-    else out[k].c0 = v;
-  }
-  __syncthreads();
-}
-__device__ void f12_pow_block(fq2* acc, const fq2* m,
-                              const int32_t* __restrict__ bits, int nbits,
-                              fq2* prod) {
-  for (int s = 1; s < nbits; s++) {
-    f12_mul_block(acc, acc, acc, 6, prod);
-    if (bits[s]) f12_mul_block(acc, acc, m, 6, prod);
-  }
-}
-__device__ __forceinline__ long bls_elem(int i, int c, int lane, int b) {
-  return (long)(i * 2 + c) * 24 * b + lane;
-}
-__device__ __forceinline__ void f12_load_block(fq2* dst,
-                                               const int32_t* __restrict__ arr,
-                                               int lane, int b) {
-  const int t = threadIdx.x;
-  if (t < 12) {
-    const fq v = fq_load16(arr + bls_elem(t >> 1, t & 1, lane, b), b);
-    if (t & 1) dst[t >> 1].c1 = v;
-    else dst[t >> 1].c0 = v;
-  }
-}
-__device__ __forceinline__ void f12_store_block(int32_t* __restrict__ out,
-                                                uint8_t* __restrict__ ok,
-                                                const fq2* x, int lane, int b) {
-  const int t = threadIdx.x;
-  if (t < 12)
-    fq_store16(out + bls_elem(t >> 1, t & 1, lane, b), b,
-               (t & 1) ? x[t >> 1].c1 : x[t >> 1].c0);
-  if (t == 0) {
-    bool one = fq2_is(x[0], fq_one());
-    for (int i = 1; i < 6; i++) one = one && fq2_is(x[i], fq_zero());
-    ok[lane] = one ? 1 : 0;
-  }
-}
-#endif
-__global__ void __launch_bounds__(BLS_THREADS)
-bls_hard_pow_prev_kernel(const int32_t* __restrict__ arr,
-                    const int32_t* __restrict__ bits, int nbits,
-                    int32_t* __restrict__ out, uint8_t* __restrict__ ok,
-                    int b) {
-  __shared__ fq2 m[6], acc[6], prod[36];
-  const int lane = blockIdx.x;
-  f12_load_block(m, arr, lane, b);
-  f12_load_block(acc, arr, lane, b);
-  __syncthreads();
-  f12_pow_block(acc, m, bits, nbits, prod);
-  f12_store_block(out, ok, acc, lane, b);
-}
-extern "C" int cbt_bls_hard_pow_prev(const int32_t* arr, const int32_t* bits,
-                                int nbits, int32_t* out, uint8_t* ok, int b,
-                                void* stream) {
-  if (b > 0)
-    bls_hard_pow_prev_kernel<<<b, BLS_THREADS, 0, (cudaStream_t)stream>>>(
-        arr, bits, nbits, out, ok, b);
-  return (int)cudaGetLastError();
-}
-#define MILLER_STEPS 63
-#define MILLER_PAIRS 2
-__global__ void __launch_bounds__(BLS_THREADS)
-bls_miller_finalexp_prev_kernel(const int32_t* __restrict__ lines,
-                           const int32_t* __restrict__ bits, int nbits,
-                           int32_t* __restrict__ out,
-                           uint8_t* __restrict__ ok, int b) {
-  __shared__ fq2 f[6], m[6], inv[6], line[3], prod[36];
-  const int lane = blockIdx.x;
-  const int t = threadIdx.x;
-  if (t < 6) {
-    f[t].c0 = t == 0 ? fq_one() : fq_zero();
-    f[t].c1 = fq_zero();
-  }
-  __syncthreads();
-  for (int s = 0; s < MILLER_STEPS; s++) {
-    f12_mul_block(f, f, f, 6, prod);
-    for (int pi = 0; pi < MILLER_PAIRS; pi++) {
-      for (int ph = 0; ph < 2; ph++) {
-        if (t < 6) {
-          const long row =
-              ((((long)(s * MILLER_PAIRS + pi) * 2 + ph) * 3 + (t >> 1)) * 2 +
-               (t & 1)) * 24;
-          const fq v = fq_load16(lines + row * b + lane, b);
-          if (t & 1) line[t >> 1].c1 = v;
-          else line[t >> 1].c0 = v;
-        }
-        __syncthreads();
-        f12_mul_block(f, f, line, 3, prod);
-      }
-    }
-  }
-  if (t < 6 && (t & 1)) f[t] = fq2_neg(f[t]);
-  __syncthreads();
-  if (t == 0) f12_inv_serial(f, inv);
-  if (t < 6) m[t] = (t & 1) ? fq2_neg(f[t]) : f[t];
-  __syncthreads();
-  f12_mul_block(m, m, inv, 6, prod);
-  if (t < 12) {
-    const fq g = fq_gamma2(t >> 1);
-    if (t & 1) f[t >> 1].c1 = fq_mul(m[t >> 1].c1, g);
-    else f[t >> 1].c0 = fq_mul(m[t >> 1].c0, g);
-  }
-  __syncthreads();
-  f12_mul_block(m, f, m, 6, prod);
-  if (t < 6) f[t] = m[t];
-  __syncthreads();
-  f12_pow_block(f, m, bits, nbits, prod);
-  f12_store_block(out, ok, f, lane, b);
-}
-extern "C" int cbt_bls_miller_finalexp_prev(const int32_t* lines,
-                                       const int32_t* bits, int nbits,
-                                       int32_t* out, uint8_t* ok, int b,
-                                       void* stream) {
-  if (b > 0)
-    bls_miller_finalexp_prev_kernel<<<b, BLS_THREADS, 0, (cudaStream_t)stream>>>(
-        lines, bits, nbits, out, ok, b);
-  return (int)cudaGetLastError();
-}
-"""
-BLS_PREV_FNS = {"bls_hard_pow": "bls_hard_pow_prev_kernel",
-               "bls_miller_finalexp": "bls_miller_finalexp_prev_kernel"}
 # `--bls-cycles`, not a phase of the smoke: where one lane's time goes,
 # clock64 cycles of the BLS kernels' pieces on one block, from fq381.cuh as
 # the kernels build it: a one-thread Fq product and squaring (MICRO_REPS
@@ -982,44 +472,6 @@ def _nvcc_load(build, name: str, proc: subprocess.Popen) -> tuple:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{text}")
     return ctypes.CDLL(str(build.BUILD_DIR / f"{name}.so")), text
-
-
-class BlsYard:
-    """The yardstick kernels of BLS_PREV_CU: the constructor starts nvcc
-    (beside the port's own builds), `load` waits and binds them."""
-
-    def __init__(self, build):
-        self.build = build
-        self.proc = _nvcc(build, "bls_prev", BLS_PREV_CU)
-
-    def kill(self) -> None:
-        self.proc.kill()
-
-    def load(self) -> str:
-        lib, text = _nvcc_load(self.build, "bls_prev", self.proc)
-        self._fns = {}
-        for key in BLS_PREV_FNS:
-            fn = getattr(lib, f"cbt_{key}_prev")
-            fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p)
-            fn.restype = ctypes.c_int
-            self._fns[key] = fn
-        return text
-
-    def call(self, torch, key, x, bits):
-        """(6, 2, 24, B) elements or (63, 2, 2, 3, 2, 24, B) lines ->
-        (final Fq12 limbs (6, 2, 24, B), verdicts (B,))."""
-        b = x.shape[-1]
-        out = torch.empty((6, 2, 24, b), dtype=torch.int32, device=x.device)
-        ok = torch.empty((b,), dtype=torch.bool, device=x.device)
-        rc = self._fns[key](x.data_ptr(), bits.data_ptr(), bits.shape[0],
-                            out.data_ptr(), ok.data_ptr(), b,
-                            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"BLS yardstick {key} launch failed: {rc}")
-        return out, ok
-
 
 
 def bls_cycles(torch, build, seed: int) -> tuple:
@@ -1250,12 +702,12 @@ def _enc_tensor(torch, encs, dev):
                            .astype(np.int32), device=dev)
 
 
-def check_kernels(torch, pkg, tile, dev, report, yard):
+def check_kernels(torch, pkg, tile, dev, report):
     """Phase 3: each kernel against its plain version at the main path's
     shapes (decompression at 2 N: A and R in one call), and the three
     per-lane kernels again at N = RAGGED, where the last block of each is
-    part empty and the kernel masks its edge. Then every kernel, and the
-    one-thread yardsticks, under torch.profiler (`profile_kernels`).
+    part empty and the kernel masks its edge. Then every kernel under
+    torch.profiler (`profile_kernels`).
     Returns the point additions' inputs, which the A/B phase times."""
     cv, ed, fe, ped = pkg["cv"], pkg["ed"], pkg["fe"], pkg["ped"]
     ref = pkg["ref"]
@@ -1273,20 +725,11 @@ def check_kernels(torch, pkg, tile, dev, report, yard):
                for i in range(0, 2 * n, 97)]
     if ok[::97].cpu().tolist() != want_ok:
         raise AssertionError("pt_decompress_tiled disagrees with the oracle")
-    enc_a, enc_r = enc[:, :n].contiguous(), enc[:, n:].contiguous()
+    enc_r = enc[:, n:].contiguous()
     err_n, _ = _hold_decompress(torch, pkg, enc_r)
     # the ragged lanes: every undecodable lane first, then decodable ones
     pick = torch.argsort(ok.to(torch.int8), stable=True)[:RAGGED]
     err_r, ok_r = _hold_decompress(torch, pkg, enc[:, pick].contiguous())
-    # the yardstick decodes as the kernel does (its time is the parent's)
-    for half, sl in ((enc_a, slice(0, n)), (enc_r, slice(n, 2 * n))):
-        ypt, yok = yard.pt_decompress(torch, half)
-        if not torch.equal(yok, ok[sl]) or _point_err(
-                torch, fe,
-                tuple(c[:, yok] for c in cv.unpack_point(ypt.long())),
-                tuple(c[:, yok] for c in cv.unpack_point(
-                    cv.pt_decompress_tiled(half)[0].long()))):
-            raise AssertionError("the one-thread decompression differs")
     report["pt_decompress_tiled"] = {
         "max_abs_err": max(err, err_n, err_r), "lanes": 2 * n,
         "call_ms": _median_ms(torch, lambda: cv.pt_decompress_tiled(enc),
@@ -1355,9 +798,6 @@ def check_kernels(torch, pkg, tile, dev, report, yard):
         raise AssertionError("pt_add_tiled: P + (-P) is not the identity")
     err_r, _ = _hold_pt_add(torch, pkg,
                             *(a[..., :RAGGED].contiguous() for a in add_args))
-    if _point_err(torch, fe, cv.unpack_point(got.long()), cv.unpack_point(
-            yard.pt_add(torch, *add_args).long())):
-        raise AssertionError("the one-thread addition differs")
     add8 = tuple(a[..., :8].contiguous() for a in add_args)
     report["pt_add_tiled"] = {
         "max_abs_err": max(err, err_r),
@@ -1389,17 +829,13 @@ def check_kernels(torch, pkg, tile, dev, report, yard):
         "m128": {"call_ms": _median_ms(
             torch, lambda: cv.rlc_epilogue(m128, b_tab, sdig), 10),
             "bound_ms": _epilogue_bound(128)[0]}}
-    profile_kernels(torch, cv, yard, [
+    profile_kernels(torch, cv, [
         ("pt_decompress_tiled", lambda: cv.pt_decompress_tiled(enc)),
         ("pt_decompress_tiled@n", lambda: cv.pt_decompress_tiled(enc_r)),
-        ("pt_decompress_tiled@one_thread",
-         lambda: (yard.pt_decompress(torch, enc_a),
-                  yard.pt_decompress(torch, enc_r))),
         ("rlc_window_sums", lambda: cv.rlc_window_sums(*ws_args)),
         ("rlc_epilogue", lambda: cv.rlc_epilogue(folded, b_tab, sdig)),
         ("rlc_epilogue@m128", lambda: cv.rlc_epilogue(m128, b_tab, sdig)),
         ("pt_add_tiled", lambda: cv.pt_add_tiled(*add_args)),
-        ("pt_add_tiled@one_thread", lambda: yard.pt_add(torch, *add_args)),
         # 8 lanes: the fixed cost of a launch of this kernel
         ("pt_add_tiled@lanes8", lambda: cv.pt_add_tiled(*add8)),
     ], report)
@@ -1488,23 +924,31 @@ def _device_kernels(torch, fn, by_name=None, order=None):
         # last flush's window-sums and epilogue events (PERF.md): the
         # session stays open a while past the synchronize
         time.sleep(PROFILE_TAIL_S)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = _cuda_events(torch, prof)
     if by_name is not None:
-        for e in dev:
-            name = _kernel_name(e)
+        for _t, name, _us in dev:
             by_name[name] = by_name.get(name, 0) + 1
-    out = (len(dev), float(sum(e.time_range.elapsed_us() for e in dev)),
-           wall)
+    out = (len(dev), float(sum(us for _t, _n, us in dev)), wall)
     if order is None:
         return out
-    named = ((e.time_range.start, _kernel_name(e)) for e in dev)
-    seq = sorted((t, order[n]) for t, n in named if n in order)
+    seq = sorted((t, order[n]) for t, n, _us in dev if n in order)
     return out + ("".join(c for _, c in seq),)
 
 
-def _kernel_name(e) -> str:
-    return re.match(r"(?:void\s+)?(\w*)", e.name or "").group(1)
+def _cuda_events(torch, prof) -> list:
+    """A finished profile's device events as (start us, kernel name,
+    duration us), read from the profiler's raw results: building its
+    FunctionEvents (`prof.events()`) took tens of seconds for the
+    hundreds of thousands of launches of a profiled sync."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.start_ns() / 1e3, _kernel_name(e.name()),
+             e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def _kernel_name(name: str) -> str:
+    return re.match(r"(?:void\s+)?(\w*)", name or "").group(1)
 
 
 def _source_fns(name: str) -> set:
@@ -1516,7 +960,7 @@ def _source_fns(name: str) -> set:
                           (csrc / src).read_text()))
 
 
-def _profile_jobs(torch, cv, yard, jobs, fns_of):
+def _profile_jobs(torch, cv, jobs, fns_of):
     """One profile session of `profile_kernels`. -> (launches counted
     per job, device-event durations per source's function set, the
     position of the first timed round in each, and a description of
@@ -1528,20 +972,16 @@ def _profile_jobs(torch, cv, yard, jobs, fns_of):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for label, fn in jobs:
             base, _, tag = label.partition("@")
-            counter = yard.launches if tag == "one_thread" else cv.LAUNCHES
             cv.reset_launches()
-            counter[base] = 0
             fn()
             torch.cuda.synchronize()
-            counts[label] = counter[base]
+            counts[label] = cv.LAUNCHES[base]
         for _ in range(ROUNDS):
             for _label, fn in jobs:
                 fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_TAIL_S)
-    events = sorted((e.time_range.start, _kernel_name(e),
-                     e.time_range.elapsed_us()) for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = sorted(_cuda_events(torch, prof))
     queues, pos = {}, {}
     for label, _fn in jobs:
         fs = fns_of(label)
@@ -1563,12 +1003,11 @@ def _profile_jobs(torch, cv, yard, jobs, fns_of):
     return counts, queues, pos, lost
 
 
-def profile_kernels(torch, cv, yard, jobs, report) -> None:
+def profile_kernels(torch, cv, jobs, report) -> None:
     """Every job (label, call) under one torch.profiler session: first
     one call of each with its launch count zeroed and read after it, then
     ROUNDS rounds of one call of each job in turn. A label is a wrapper's
-    name, or the name and a tag: `one_thread` for the yardstick of
-    ONE_THREAD_CU, any other tag for the wrapper on other inputs.
+    name, or the name and a tag for the wrapper on other inputs.
 
     The device events named after a source's `__global__` functions must
     number (1 + ROUNDS) times the launches counted for its jobs; a
@@ -1578,12 +1017,10 @@ def profile_kernels(torch, cv, yard, jobs, report) -> None:
     `rlc_window_sums`)."""
 
     def fns_of(label):
-        base, _, tag = label.partition("@")
-        return frozenset({ONE_THREAD_FNS[base]} if tag == "one_thread"
-                         else _source_fns(base))
+        return frozenset(_source_fns(label.partition("@")[0]))
 
     for attempt in range(1, PROFILE_TRIES + 1):
-        counts, queues, pos, lost = _profile_jobs(torch, cv, yard, jobs,
+        counts, queues, pos, lost = _profile_jobs(torch, cv, jobs,
                                                   fns_of)
         if not lost:
             break
@@ -2667,16 +2104,14 @@ def _bls_bytes(kernel: str, bucket: int, nbits: int) -> int:
     return bucket * (lane_in + 6 * 2 * 24 * 4 + 1) + 4 * nbits
 
 
-def check_bls_kernels(torch, dev, report, parent) -> None:
-    """Hold both BLS kernels against their plain versions and against the
-    previous design (`parent`, BLS_PREV_CU) on the card at buckets 4, 16 and
-    64, exactly (the final Fq12 limbs and the verdicts), check the lanes'
-    verdicts against the host oracle, hold `bls_hard_pow` once more with a
-    short exponent, then time each kernel per bucket: device time under
-    torch.profiler (BLS_ROUNDS calls a session, sessions in turns with the
-    previous design: new, previous, previous, new), one call with CUDA
-    events, and the plain version's call (the holding run,
-    synchronized)."""
+def check_bls_kernels(torch, dev, report) -> None:
+    """Hold both BLS kernels against their plain versions on the card at
+    buckets 4, 16 and 64, exactly (the final Fq12 limbs and the
+    verdicts), check the lanes' verdicts against the host oracle, hold
+    `bls_hard_pow` once more with a short exponent, then time each kernel
+    per bucket: device time under torch.profiler (BLS_ROUNDS calls a
+    session, two sessions), one call with CUDA events, and the plain
+    version's call (the holding run, synchronized)."""
     from cometbft_tpu_torch.crypto import bls12381 as bls
     from cometbft_tpu_torch.ops import bls12 as pb
     items, want = bls_items(bls)
@@ -2691,8 +2126,7 @@ def check_bls_kernels(torch, dev, report, parent) -> None:
     short = torch.tensor(pb.HARD_BITS[:40], dtype=torch.int32, device=dev)
     calls = {}
     for name in ("bls_miller_finalexp", "bls_hard_pow"):
-        report[name] = {"by_bucket": {}, "max_abs_err": 0,
-                        "parent_max_abs_err": 0}
+        report[name] = {"by_bucket": {}, "max_abs_err": 0}
 
     def columns(arr, idx):
         cols = [np.zeros_like(arr[..., 0]) if i == BLS_ZERO
@@ -2718,22 +2152,17 @@ def check_bls_kernels(torch, dev, report, parent) -> None:
                 pout, pok = plain(x, bits)
                 torch.cuda.synchronize()
                 plain_ms = (time.perf_counter() - t0) * 1e3
-                qout, qok = parent.call(torch, name, x, bits)
                 err = int((out.long() - pout.long()).abs().max())
-                perr = int((out.long() - qout.long()).abs().max())
-                if err or perr or not torch.equal(ok, pok) or \
-                        not torch.equal(ok, qok) or \
+                if err or not torch.equal(ok, pok) or \
                         ok.tolist() != lane_want or \
                         (zero and int(out[..., zero].abs().max())):
                     raise AssertionError(
                         f"{name} at bucket {bucket}, lanes {idx}: "
-                        f"max_abs_err {err} (plain), {perr} (previous "
-                        f"design), verdicts {ok.tolist()}, plain "
-                        f"{pok.tolist()}, previous {qok.tolist()}, host "
+                        f"max_abs_err {err} (plain), verdicts "
+                        f"{ok.tolist()}, plain {pok.tolist()}, host "
                         f"oracle {lane_want}")
                 r = report[name]
                 r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["parent_max_abs_err"] = max(r["parent_max_abs_err"], perr)
                 lanes = [str(i) for i in idx] if bucket == 4 else \
                     f"items in turn, then {BLS_IDENT}, {BLS_ZERO}, {BLS_PAD}"
                 if batch:
@@ -2753,32 +2182,22 @@ def check_bls_kernels(torch, dev, report, parent) -> None:
             if not (torch.equal(out, pout) and torch.equal(ok, pok)):
                 raise AssertionError("bls_hard_pow, short exponent")
     # device times: BLS_ROUNDS calls of each (kernel, bucket) a
-    # torch.profiler session, in turns with the previous design; where the
-    # profiler keeps none of the new kernel's, `ms` is the CUDA events'
-    # time of one call (the kernel and the ctypes enqueue, tens of
-    # microseconds, before it)
+    # torch.profiler session, two sessions; where the profiler keeps none
+    # of the kernel's, `ms` is the CUDA events' time of one call (the
+    # kernel and the ctypes enqueue, tens of microseconds, before it)
     for (name, bucket), (fn, x) in calls.items():
-        def prev(a, b, _name=name):
-            return parent.call(torch, _name, a, b)
-        got = {"new": [], "parent": []}
-        tries = {"new": 0, "parent": 0}
-        for who in ("new", "parent", "parent", "new"):
-            us, t = _bls_device_us(
-                torch, fn if who == "new" else prev, x, bits,
-                _source_fns(name) if who == "new"
-                else {BLS_PREV_FNS[name]})
-            got[who] += us
-            tries[who] += t
-        ms = float(np.median(got["new"])) / 1e3 if got["new"] else None
+        got, tries = [], 0
+        for _ in range(2):
+            us, t = _bls_device_us(torch, fn, x, bits, _source_fns(name))
+            got += us
+            tries += t
+        ms = float(np.median(got)) / 1e3 if got else None
         f = report[name]["by_bucket"][bucket]
-        f.update(profiler_ms=ms, profiled_events=len(got["new"]),
-                 profile_tries=tries["new"],
+        f.update(profiler_ms=ms, profiled_events=len(got),
+                 profile_tries=tries,
                  ms=f["call_ms"] if ms is None else ms,
                  ms_source="cuda events" if ms is None
-                 else "torch.profiler",
-                 parent_ms=(float(np.median(got["parent"])) / 1e3
-                            if got["parent"] else None),
-                 parent_profiled_events=len(got["parent"]))
+                 else "torch.profiler")
     for name in ("bls_miller_finalexp", "bls_hard_pow"):
         r = report[name]
         top = r["by_bucket"][BLS_BUCKETS[-1]]
@@ -2787,8 +2206,7 @@ def check_bls_kernels(torch, dev, report, parent) -> None:
                  plain_ms=top["plain_ms"], bound=top["bound"])
         print(f"{name}: " + "; ".join(
             f"B={b} device {v['ms']:.3f} ms ({v['ms_source']}, "
-            f"{v['profiled_events']} of {2 * BLS_ROUNDS} profiled), "
-            f"previous design {v['parent_ms']} ms, call "
+            f"{v['profiled_events']} of {2 * BLS_ROUNDS} profiled), call "
             f"{v['call_ms']:.3f} ms, "
             f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), plain "
             f"{v['plain_ms']:.1f} ms" for b, v in r["by_bucket"].items()),
@@ -2811,9 +2229,8 @@ def _bls_device_us(torch, fn, x, bits, fns) -> tuple:
                 fn(x, bits)
             torch.cuda.synchronize()
             time.sleep(PROFILE_TAIL_S)
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and _kernel_name(e) in fns]
+        us = [us for _t, name, us in _cuda_events(torch, prof)
+              if name in fns]
         if len(us) == BLS_ROUNDS:
             break
     return us, tries
@@ -3187,14 +2604,6 @@ def bls_kernel_rows(report: dict, aggsig: dict, seal: dict,
             "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None, "bucket": BLS_BUCKETS[-1],
-            "parent": {
-                "design": "one block of 64 threads a lane, 3 serial "
-                          "64-bit-accumulator CIOS Fq products a thread, "
-                          "every squaring a general product (BLS_PREV_CU)",
-                "ms": r["by_bucket"][BLS_BUCKETS[-1]]["parent_ms"],
-                "max_abs_err": r["parent_max_abs_err"],
-                "by_bucket": {b: v["parent_ms"]
-                              for b, v in r["by_bucket"].items()}},
             "by_bucket": r["by_bucket"],
             "launches_genesis": {
                 k: gs[k]["launches"][name] for k in
@@ -4839,6 +4248,392 @@ def print_consensus(cons: dict, gpu: str) -> None:
           f"{e['oracle_verify_ms']:.3f}; {gpu}", flush=True)
 
 
+NODE_SERVER_START_S = 300  # the serving node must print its start by then
+NODE_DEADLINE_S = 300      # each wait of the node-boot phase ends by then
+NODE_NET_HEIGHTS = 3       # the live net commits this many before its txs
+NODE_NET_TXS = 8           # txs committed through broadcast_tx_commit
+
+
+def _median_wall_ms(fn, reps: int) -> float:
+    """Median host wall of `reps` calls of fn, in ms."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _write_node_home(chain, home: str, p2p: int, rpc: int) -> dict:
+    """A node home for the chain, as a node that produced it would hold
+    it: config.toml (FileDB, block sync off: it is the tip, listeners on
+    the given loopback ports), genesis.json, the FileDB block store of
+    every block and seen commit (`_write_store`), and the FileDB state
+    store at the tip with each height's FinalizeBlock response and
+    validator set (applied without verification: the generator verified
+    the chain) -> seconds of each part."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.db.kv import open_db
+    from cometbft_tpu_torch.node.node import save_genesis
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import State, StateStore
+    cfg = Config(root_dir=home)
+    cfg.base.chain_id = chain.chain_id
+    cfg.base.moniker = "server"
+    cfg.base.block_sync = False
+    cfg.p2p.laddr = f"127.0.0.1:{p2p}"
+    cfg.rpc.laddr = f"127.0.0.1:{rpc}"
+    cfg.write()
+    save_genesis(chain.genesis, cfg.path(cfg.base.genesis_file))
+    ddir = cfg.path(cfg.base.db_dir)
+    os.makedirs(ddir, exist_ok=True)
+    blocks_s = _write_store(chain, ddir)
+    t0 = time.perf_counter()
+    db = open_db("filedb", "state", ddir)
+    store = StateStore(db)
+    app = KVStoreApplication()
+    app.init_chain(chain.chain_id, 1, [], b"")
+    ex = BlockExecutor(app, state_store=store, device="cuda")
+    state = State.from_genesis(chain.genesis)
+    store.save(state)
+    for i in range(chain.max_height()):
+        state, _ = ex.apply_block(state, chain.block_ids[i], chain.blocks[i],
+                                  verified=True)
+    db.close()
+    return {"blocks_s": blocks_s, "state_s": time.perf_counter() - t0}
+
+
+class ServingNode:
+    """`python -m cometbft_tpu_torch.cmd.main start --home DIR --device
+    cpu` in a child process with CUDA hidden: the entry point a user runs,
+    on the CPU as the p2p phase's peer. Its stdout is read for the
+    "node started" line; its stderr goes to a file; `stop` sends SIGTERM
+    (the command stops the node and exits 0)."""
+
+    def __init__(self, home: str):
+        import selectors
+        self.err_path = os.path.join(home, "node.stderr")
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        t0 = time.perf_counter()
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "cometbft_tpu_torch.cmd.main", "start",
+                 "--home", home, "--device", "cpu"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+        sel = selectors.DefaultSelector()
+        sel.register(self.proc.stdout, selectors.EVENT_READ)
+        line = ""
+        while not line.startswith("node started"):
+            left = NODE_SERVER_START_S - (time.perf_counter() - t0)
+            line = (self.proc.stdout.readline()
+                    if left > 0 and sel.select(timeout=left) else "")
+            if not line:
+                sel.close()
+                self.stop()
+                raise RuntimeError(f"the serving node did not start: "
+                                   f"{self._stderr()}")
+        sel.close()
+        self.start_s = time.perf_counter() - t0
+
+    def _stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()[-4000:]
+
+    def stop(self) -> int:
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(timeout=30)
+        self.proc.stdout.close()
+        return rc
+
+
+class SyncClock:
+    """Wall of each `BlocksyncReactor.sync` call (the boot sync's) while
+    in use: (start, end, error or None)."""
+
+    def __init__(self):
+        from cometbft_tpu_torch.engine import blocksync
+        self.cls = blocksync.BlocksyncReactor
+        self.orig = self.cls.sync
+        self.calls: list = []
+        clock = self
+
+        def timed(engine, state, target=None):
+            t0 = time.perf_counter()
+            try:
+                out = clock.orig(engine, state, target)
+            except BaseException as e:
+                clock.calls.append((t0, time.perf_counter(), repr(e)))
+                raise
+            clock.calls.append((t0, time.perf_counter(), None))
+            return out
+        self.cls.sync = timed
+
+    def close(self) -> None:
+        self.cls.sync = self.orig
+
+
+def _status_core(st: dict) -> dict:
+    """`status` without the node's identity and clock fields."""
+    st = {k: v for k, v in st.items()
+          if k not in ("node_info", "validator_info")}
+    st["sync_info"] = {k: v for k, v in st["sync_info"].items()
+                       if "time" not in k}
+    return st
+
+
+def run_node_catchup(torch, pkg, chain, gen_app, per_call: dict,
+                     root: str) -> dict:
+    """Part (a): node boot through the entry points. A serving node
+    (`ServingNode`, `cmd.main start --device cpu`) holds the 121-block,
+    200-validator chain in FileDB stores and replays it into a fresh
+    kvstore in its handshake. A laggard is made by `cmd.main init`, given
+    the chain's genesis and the server as its persistent peer, built as
+    `Node(cfg, device="cuda")` (block sync on, `pipeline_depth` 4, its
+    batch `_device_batch_size(200)` = 4,096 lanes, a 16-commit tile) and
+    started: its boot thread blocksyncs through the RLC kernels, then
+    starts consensus. The shared signature cache is reset first (the
+    earlier phases verified these signatures); the batch's bucket is
+    warmed before the counts are zeroed, so the node's own prewarm finds
+    it warm and every counted launch is the sync's (FlushCount)."""
+    from cometbft_tpu_torch.cmd.main import main as cli
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node.node import BOOT_TILE, Node, save_genesis
+    from cometbft_tpu_torch.ops import bls12
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.rpc.client import RPCClient
+    ped = pkg["ped"]
+    top = chain.max_height()
+    srv_home, lag_home = os.path.join(root, "server"), os.path.join(
+        root, "laggard")
+    srv_p2p, srv_rpc = _free_port(), _free_port()
+    home_s = _write_node_home(chain, srv_home, srv_p2p, srv_rpc)
+    server = ServingNode(srv_home)
+    node = clock = None
+    try:
+        assert cli(["init", "--home", lag_home, "--chain-id",
+                    chain.chain_id]) == 0
+        cfg = Config.load(lag_home)
+        save_genesis(chain.genesis, cfg.path(cfg.base.genesis_file))
+        cfg.base.moniker = "laggard"
+        cfg.p2p.laddr = cfg.rpc.laddr = "127.0.0.1:0"
+        cfg.p2p.persistent_peers = f"127.0.0.1:{srv_p2p}"
+        cfg.write()
+        reset_shared_cache()
+        t0 = time.perf_counter()
+        node = Node(Config.load(lag_home), device="cuda")
+        construct_s = time.perf_counter() - t0
+        batch = node._device_batch_size(VALIDATORS)
+        t0 = time.perf_counter()
+        ped.prewarm_verify_kernels(batch, device=node.device)
+        torch.cuda.synchronize()
+        prewarm_s = time.perf_counter() - t0
+        canary0 = ped.canary_stats()
+        bls0 = dict(bls12.LAUNCHES)
+        clock = SyncClock()
+        count = FlushCount(torch, pkg, per_call)
+        t0 = time.perf_counter()
+        node.start()
+        consensus_s = _wait(lambda: node.boot_error is not None or (
+            node.consensus._thread is not None and
+            node.consensus.rs.height > top), f"the laggard's consensus at "
+            f"{top + 1}", NODE_DEADLINE_S)
+        if node.boot_error is not None:
+            raise AssertionError(f"node boot: {node.boot_error!r}")
+        flushes = count.read("node boot")
+        clock.close()
+        engine = node.boot_engine
+        syncs = [{"wall_s": b - a, "error": e} for a, b, e in clock.calls]
+        sync_s = sum(x["wall_s"] for x in syncs)
+        canary = {k: ped.canary_stats()[k] - canary0[k] for k in canary0}
+        drains = node.pipeline_metrics.wedge_fallbacks.value()
+        if canary["trips"] or drains or any(x["error"] for x in syncs):
+            raise AssertionError(f"node boot: trips {canary['trips']}, "
+                                 f"drains {drains}, syncs {syncs}")
+        if node.consensus.state.app_hash != gen_app.last_app_hash or \
+                node.consensus.state.last_block_height != top or \
+                [node.block_store.load_block(h).hash()
+                 for h in range(1, top + 1)] != \
+                [b.hash() for b in chain.blocks]:
+            raise AssertionError("node boot: the laggard's blocks or app "
+                                 "hash differ from the generator's")
+        lag_rpc = RPCClient(*node.rpc_server.addr, timeout=60)
+        srv_rpc_c = RPCClient("127.0.0.1", srv_rpc, timeout=60)
+        answers, rpc_ms = {}, {"laggard": {}, "server": {}}
+        for name, call in (
+                ("status", lambda c: _status_core(c.status())),
+                ("block", lambda c: c.call("block", height=top)),
+                ("commit", lambda c: c.call("commit", height=top)),
+                ("validators", lambda c: c.call(
+                    "validators", height=top, per_page=100, page=2))):
+            got = {}
+            for who, client in (("laggard", lag_rpc),
+                                ("server", srv_rpc_c)):
+                t0 = time.perf_counter()
+                got[who] = call(client)
+                rpc_ms[who][name] = (time.perf_counter() - t0) * 1e3
+            if got["laggard"] != got["server"]:
+                raise AssertionError(f"node boot: {name} at {top} differs "
+                                     f"from the server's")
+            answers[name] = len(json.dumps(got["laggard"]))
+        # the round trip of the smallest answer, health, ten times each
+        for who, client in (("laggard", lag_rpc), ("server", srv_rpc_c)):
+            rpc_ms[who]["health"] = _median_wall_ms(
+                lambda c=client: c.call("health"), 10)
+        sigs = engine.stats.sigs_verified
+        return {
+            "validators": VALIDATORS, "blocks": top, "tile": BOOT_TILE,
+            "batch": batch, "depth": engine.pipeline_depth,
+            "home_s": home_s, "server_start_s": server.start_s,
+            "construct_s": construct_s, "prewarm_s": prewarm_s,
+            "sync_s": sync_s, "syncs": syncs,
+            "boot_to_consensus_s": consensus_s,
+            "sigs_verified": sigs, "sigs_per_s": sigs / sync_s,
+            "tiles": engine.stats.tiles_flushed,
+            "blocks_applied": engine.stats.blocks_applied,
+            "flush_count": flushes, "launches": flushes["launches"],
+            "flushes_per_tile": flushes["flushes"] / max(
+                engine.stats.tiles_flushed, 1),
+            "canary": canary, "drains": drains,
+            "bls_launches": {k: bls12.LAUNCHES[k] - bls0.get(k, 0)
+                             for k in bls12.LAUNCHES},
+            "rpc_ms": rpc_ms, "rpc_answer_bytes": answers}
+    finally:
+        if clock is not None:
+            clock.close()
+        if node is not None:
+            node.stop()
+        rc = server.stop()
+        if rc != 0:
+            raise RuntimeError(f"the serving node exited {rc}: "
+                               f"{server._stderr()}")
+
+
+def run_node_net(torch, root: str) -> dict:
+    """Part (b): a live net of 4 validators from `cmd.main testnet` homes,
+    each an in-process `Node(cfg, device="cuda")` with its FileDB stores,
+    FilePV and WAL, the listeners moved to free loopback ports and dialled
+    pairwise. Its boot (each node's boot sync finds no peer ahead, then
+    consensus) ends at height 1 everywhere; from there it commits
+    NODE_NET_HEIGHTS heights (the wall timed); then NODE_NET_TXS txs
+    go in through `broadcast_tx_commit` on node 0, one after another, and
+    are read back on node 2 with `abci_query` and `tx_search`."""
+    from cometbft_tpu_torch.cmd.main import main as cli
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.rpc.client import RPCClient
+    d = os.path.join(root, "net")
+    assert cli(["testnet", "--v", "4", "--o", d, "--chain-id", "node-net",
+                "--base-port", str(_free_port())]) == 0
+    nodes = []
+    try:
+        for i in range(4):
+            cfg = Config.load(os.path.join(d, f"node{i}"))
+            cfg.p2p.laddr = cfg.rpc.laddr = "127.0.0.1:0"
+            cfg.p2p.persistent_peers = ""
+            nodes.append(Node(cfg, device="cuda"))
+        for n in nodes:
+            n.start()
+        for i, n in enumerate(nodes):
+            for other in nodes[i + 1:]:
+                n.switch.dial(*other.p2p_addr)
+        boot_s = _wait(lambda: all(n.consensus.state.last_block_height >= 1
+                                   for n in nodes), "the net at 1",
+                       NODE_DEADLINE_S)
+        wall = _wait(lambda: all(n.consensus.state.last_block_height >=
+                                 1 + NODE_NET_HEIGHTS for n in nodes),
+                     f"the net at {1 + NODE_NET_HEIGHTS}", NODE_DEADLINE_S)
+        rpc0 = RPCClient(*nodes[0].rpc_server.addr, timeout=60)
+        rpc2 = RPCClient(*nodes[2].rpc_server.addr, timeout=60)
+        h0 = nodes[0].consensus.state.last_block_height
+        tx_ms, heights = [], []
+        for i in range(NODE_NET_TXS):
+            t1 = time.perf_counter()
+            r = rpc0.call("broadcast_tx_commit",
+                          tx=f"nb{i}=v{i}".encode().hex())
+            tx_ms.append((time.perf_counter() - t1) * 1e3)
+            if r["check_tx"]["code"] or r["tx_result"]["code"]:
+                raise AssertionError(f"node net: tx {i} failed: {r}")
+            heights.append(r["height"])
+        _wait(lambda: all(bytes.fromhex(rpc2.abci_query(
+            "/store", f"nb{i}".encode())["value"]) == f"v{i}".encode()
+            for i in range(NODE_NET_TXS)), "the txs on node 2",
+            NODE_DEADLINE_S)
+        _wait(lambda: rpc2.call("tx_search", query=f"tx.height > {h0}",
+                                per_page=100)["total_count"] >=
+              NODE_NET_TXS, "the txs indexed on node 2", NODE_DEADLINE_S)
+        tips = [n.consensus.state.last_block_height for n in nodes]
+        top = min(tips)
+        hashes = {n.block_store.load_block(top).hash() for n in nodes}
+        if len(hashes) != 1:
+            raise AssertionError("node net: the nodes hold other blocks")
+    finally:
+        for n in nodes:
+            n.stop()
+    return {"validators": 4, "heights": NODE_NET_HEIGHTS, "boot_s": boot_s,
+            "wall_s": wall, "s_per_height": wall / NODE_NET_HEIGHTS,
+            "tx_ms": tx_ms,
+            "tx_ms_median": float(np.median(tx_ms)), "tx_heights": heights,
+            "tips": tips}
+
+
+def run_node_boot(torch, pkg, chain, gen_app, per_call: dict) -> dict:
+    """The node-boot phase: (a) `run_node_catchup`, (b) `run_node_net`,
+    in a directory under build/ removed after."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_node_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    t0 = time.perf_counter()
+    try:
+        out = {"catchup": run_node_catchup(torch, pkg, chain, gen_app,
+                                           per_call, root),
+               "net": run_node_net(torch, root)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["pass_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_node_boot(boot: dict, gpu: str) -> None:
+    c, n = boot["catchup"], boot["net"]
+    print(f"node boot: a fresh Node(device=cuda) from `cmd init` caught up "
+          f"{c['blocks']} blocks x {c['validators']} validators from a "
+          f"`cmd start` node (CPU, FileDB, up in {c['server_start_s']:.1f} "
+          f"s) through start(): constructed in {c['construct_s']:.3f} s, "
+          f"boot sync {c['sync_s']:.3f} s ({c['sigs_verified']} sigs, "
+          f"{c['sigs_per_s']:.1f} sigs/s; tile {c['tile']}, batch "
+          f"{c['batch']}, depth {c['depth']}; {c['tiles']} tiles, "
+          f"{c['flush_count']['flushes']} flushes, "
+          f"{c['flushes_per_tile']:.3f} a tile, "
+          f"{c['flush_count']['canaries']} canary runs; trips "
+          f"{c['canary']['trips']}, drains {c['drains']}), consensus at "
+          f"{c['blocks'] + 1} {c['boot_to_consensus_s']:.3f} s after start();"
+          f" RLC launches {c['launches']}; RPC status/block/commit/"
+          f"validators equal the server's (health round trip "
+          f"{c['rpc_ms']['laggard']['health']:.2f} ms the laggard, "
+          f"{c['rpc_ms']['server']['health']:.2f} ms the server; ms a call "
+          f"{c['rpc_ms']}); live net of 4 from `cmd testnet`: at height 1 "
+          f"{n['boot_s']:.3f} s after start(), then {n['heights']} heights "
+          f"in {n['wall_s']:.3f} s ({n['s_per_height']:.3f} s a height), "
+          f"{len(n['tx_ms'])} broadcast_tx_commit "
+          f"{n['tx_ms_median']:.1f} ms median a tx; {gpu}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # generate_chain's own default; with it, the signature tampered at
@@ -4880,26 +4675,16 @@ def main(argv=None) -> int:
         print(json.dumps({"bls_cycles": cycles, "gpu": gpu}), flush=True)
         return 0
 
-    # phase 1: build (the yardstick's nvcc runs beside the port's)
+    # phase 1: build
     laps = Laps()
     t0 = time.perf_counter()
-    yard = OneThread(_build)
-    bls_parent = BlsYard(_build)
-    try:
-        log = _build.build_all(verbose=True)
-    except BaseException:
-        yard.proc.kill()
-        bls_parent.kill()
-        raise
-    log = {**log, "one_thread": {"output": yard.load(), "seconds": 0.0},
-           "bls_yardsticks": {"output": bls_parent.load(), "seconds": 0.0}}
+    log = _build.build_all(verbose=True)
     for name in ("kvlog", "aead", "ed25519"):  # host C++, with g++
         _build.host_lib(name)
         log[f"host/{name}"] = _build.BUILD_LOG[f"host/{name}"]
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f}s wall, " + ", ".join(
-        f"{k} {v['seconds']:.1f}s" for k, v in log.items()
-        if k not in ("one_thread", "bls_yardsticks")), flush=True)
+        f"{k} {v['seconds']:.1f}s" for k, v in log.items()), flush=True)
     for name, v in log.items():
         for line in v["output"].splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
@@ -4923,7 +4708,7 @@ def main(argv=None) -> int:
 
     # phase 3: kernels against their plain versions
     report: dict = {}
-    add_args = check_kernels(torch, pkg, tile, dev, report, yard)
+    add_args = check_kernels(torch, pkg, tile, dev, report)
     print(f"kernels match their plain versions at N={LANES} (decompression "
           f"at 2N={2 * LANES}, A and R in one call, and at N; N={RAGGED} "
           f"for decompression, window sums and additions, N={CHUNKS} for "
@@ -4931,8 +4716,8 @@ def main(argv=None) -> int:
           flush=True)
     where = breakdown(torch, pkg, tile, dev)
     laps("kernel holds")
-    check_bls_kernels(torch, dev, report, bls_parent)
-    print(f"bls kernels match their plain versions and the previous design "
+    check_bls_kernels(torch, dev, report)
+    print(f"bls kernels match their plain versions "
           f"at B = {', '.join(map(str, BLS_BUCKETS))} (final Fq12 limbs and "
           f"verdicts, max_abs_err 0; lanes against the host oracle, the "
           f"1-pair, all-identity, zero and pad lanes among them; "
@@ -5049,6 +4834,9 @@ def main(argv=None) -> int:
                          args.seed, per_call)
     print_consensus(cons, gpu)
     laps("consensus")
+    boot = run_node_boot(torch, pkg, pipe_chain, pipe_app, per_call)
+    print_node_boot(boot, gpu)
+    laps("node boot")
 
     cv.reset_launches()
     run_pt_add_ab(torch, pkg, add_args, report)
@@ -5087,6 +4875,7 @@ def main(argv=None) -> int:
             "launches_consensus": {
                 "catchup": cons["catchup"]["launches"][name],
                 "add_votes": cons["add_votes"]["launches"][name]},
+            "launches_node_boot": boot["catchup"]["launches"][name],
             **{k: r[k] for k in ("launches_per_call",
                                  "launches_per_call_profiled", "lanes", "m")
                if k in r}}
@@ -5096,13 +4885,6 @@ def main(argv=None) -> int:
             row["at_n"] = {"lanes": LANES, "ms": r["n_ms"]}
         if name == "pt_add_tiled":
             row["at_8_lanes"] = {"ms": r["lanes8_ms"]}
-        if name in ONE_THREAD_FNS:      # the parent's design, same call
-            row["parent"] = {
-                "design": "one thread per lane" + (
-                    ", A and R in two launches of N lanes"
-                    if name == "pt_decompress_tiled" else ""),
-                "ms": r["one_thread_ms"],
-                "launches_per_call": r["one_thread_launches_per_call"]}
         if name == "pt_add_tiled":
             row["launches"] = ab[name]      # its own phase: the A/B
         kernels.append(row)
@@ -5111,6 +4893,8 @@ def main(argv=None) -> int:
         row["launches_consensus_seal"] = {
             k: cons["seal"][k]["launches"][row["name"]]
             for k in ("forged", "adopt")}
+        row["launches_node_boot"] = \
+            boot["catchup"]["bls_launches"].get(row["name"], 0)
     for fig in (sync, bad):
         fig["verify_s"] = fig["span_s"].get("blocksync.verify", 0.0)
         fig["fetch_s"] = fig["span_s"].get("blocksync.fetch", 0.0)
@@ -5125,7 +4909,7 @@ def main(argv=None) -> int:
         "pipeline": pipe, "device_server": server,
         "light_client": light, "mixed_set": mixed, "aggsig": aggsig,
         "sealsync": seal, "p2p": p2p, "farm": farm, "ingest": ingest,
-        "consensus": cons,
+        "consensus": cons, "node_boot": boot,
         "bls_kernels": {k: report[k] for k in BLS_KERNELS},
         "pipe_chain_s": pipe_gen_s,
         "chain_s": gen_s, "commit_marshal_s": marshal_s, "e2e": e2e,

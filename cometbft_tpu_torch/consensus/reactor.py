@@ -266,6 +266,7 @@ class ConsensusReactor:
     def stop(self) -> None:
         if self._reconcile_thread is not None:
             self._reconcile_stop.set()
+            self._reconcile_thread.join(timeout=5)
             self._reconcile_thread = None
 
     def _reconcile_loop(self) -> None:

@@ -99,8 +99,9 @@ class BlockPool:
                 self._next_wanted = height
             self._schedule()
             ok = self._available.wait_for(
-                lambda: height in self._buffer, timeout=timeout)
-            if not ok:
+                lambda: height in self._buffer or self._stop.is_set(),
+                timeout=timeout)
+            if not ok or height not in self._buffer:
                 return None
             got = self._buffer[height]
             # evict everything below the seal-overlap lookback
@@ -117,7 +118,10 @@ class BlockPool:
         self._work.put(height)
 
     def stop(self) -> None:
-        self._stop.set()
+        """Ends the workers and wakes a waiting `pop` (it returns None)."""
+        with self._available:
+            self._stop.set()
+            self._available.notify_all()
 
 
 class PooledSource:

@@ -1,5 +1,5 @@
 """Copy of `cometbft_tpu/evidence/__init__.py` in the port (the pool;
-the gossip reactor comes with node boot)."""
+the gossip reactor is `evidence/reactor.py`)."""
 
 from .pool import EvidencePool, verify_duplicate_vote
 

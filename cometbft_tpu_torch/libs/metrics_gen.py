@@ -4,10 +4,11 @@ cache), `DeviceMetrics` (the device health supervisor), `AggsigMetrics`
 (aggregated-commit verification), `FarmMetrics` (the light-client
 verification farm), `IngestMetrics` (batched tx admission),
 `SealsyncMetrics` (seal sync), `MempoolMetrics`, `StorageMetrics` (the
-recovery doctor, FileDB replay, the WAL) and `P2PMetrics` (the switch).
+recovery doctor, FileDB replay, the WAL), `P2PMetrics` (the switch) and
+`TraceMetrics` (the flight recorder, configured by node boot).
 
 Copied from `cometbft_tpu/libs/metrics_gen.py` (:23, :43, :57, :79,
-:103, :155, :193, :177 and :9), which tools/metricsgen.py generates
+:103, :155, :193, :177, :9 and :141), which tools/metricsgen.py generates
 from the JAX package's libs/metrics_defs.py. The port keeps only these; regenerate
 there and copy again if their definitions change. Names and labels are
 the JAX package's. Help texts say what the port does where it differs:
@@ -181,3 +182,17 @@ class P2PMetrics:
             'p2p_message_receive_bytes_total', 'Bytes received from peers, by channel', label_names=['ch_id'])
         self.peer_dial_failures = reg.counter(
             'p2p_peer_dial_failures', 'Failed outbound dial attempts')
+
+
+class TraceMetrics:
+    """Generated metrics struct (4 metrics)."""
+
+    def __init__(self, reg: Registry):
+        self.spans = reg.counter(
+            'trace_spans_recorded', 'Spans recorded into the flight-recorder ring')
+        self.dropped = reg.counter(
+            'trace_spans_dropped', 'Spans evicted from the full ring (drop-oldest)')
+        self.dumps = reg.counter(
+            'trace_dumps_total', 'Flight-recorder dumps, by trigger kind (watchdog-trip, canary-failure, shard-quarantine, shed-burst)', label_names=['kind'])
+        self.ring_occupancy = reg.gauge(
+            'trace_ring_occupancy', 'Spans currently resident in the flight-recorder ring')

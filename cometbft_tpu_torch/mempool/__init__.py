@@ -1,5 +1,5 @@
-"""mempool/ — the CheckTx-admission FIFO mempool (port of
-`cometbft_tpu/mempool/`; its p2p reactor is not ported yet)."""
+"""mempool/ — the CheckTx-admission FIFO mempool and its p2p gossip
+reactor (port of `cometbft_tpu/mempool/`)."""
 
 from .mempool import (CODE_TYPE_OK, CListMempool, Mempool, NopMempool,
                       TxCache, tx_key)

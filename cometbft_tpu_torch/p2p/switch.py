@@ -282,3 +282,5 @@ class Switch:
             self.transport.close()
         for peer in self.peers():
             self.stop_peer(peer, "switch stopping")
+        if self._ensure_thread is not None:
+            self._ensure_thread.join(timeout=5)

@@ -93,8 +93,9 @@ class Transport:
                 threading.Thread(
                     target=self._upgrade, args=(raw, on_conn, False),
                     daemon=True).start()
-        threading.Thread(target=loop, name="transport-accept",
-                         daemon=True).start()
+        self._accept_thread = threading.Thread(
+            target=loop, name="transport-accept", daemon=True)
+        self._accept_thread.start()
 
     def dial(self, host: str, port: int, on_conn: Callable) -> None:
         raw = socket.create_connection((host, port), timeout=10)
@@ -139,9 +140,17 @@ class Transport:
         self._stop.set()
         if self._listener is not None:
             try:
+                # wakes a blocked accept(); close() alone does not
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
                 self._listener.close()
             except OSError:
                 pass
+        thread = getattr(self, "_accept_thread", None)
+        if thread is not None:
+            thread.join(timeout=5)
 
 
 def node_info_for(priv_key: Ed25519PrivKey, network: str,

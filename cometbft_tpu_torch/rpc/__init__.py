@@ -1,5 +1,8 @@
-"""JSON-RPC wire pieces the light client needs: the client's error and the
-JSON codecs of headers, commits and validator sets (from the JAX
-package's `rpc/client.py` and `rpc/codec.py`). The HTTP client, the proof
-codecs and the server are not ported yet (ROADMAP.md Queue 1: the
-host-only layers)."""
+"""JSON-RPC: the server and its routes, the HTTP client and the JSON
+codecs (copy of `cometbft_tpu/rpc/` in the port). `rpc/websocket.py`
+and `rpc/grpc.py` are not ported yet (ROADMAP.md Queue 1 item 11.2)."""
+
+from .server import RPCServer, RPCEnvironment
+from .client import RPCClient
+
+__all__ = ["RPCServer", "RPCEnvironment", "RPCClient"]

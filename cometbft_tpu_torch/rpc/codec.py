@@ -5,15 +5,15 @@ provider, verifying proxy) can reconstruct hash-identical types
 cometbft/api JSON; fidelity is what makes `/commit` usable as a light
 block source).
 
-Copy of `cometbft_tpu/rpc/codec.py` (the port keeps its own) less its
-proof codecs: the wire form the light client's HTTP provider decodes.
-The proof codecs and the rest of `rpc/` (the client, the server and its
-routes) are not ported yet (ROADMAP.md Queue 1: the host-only layers).
+Copy of `cometbft_tpu/rpc/codec.py` in the port (the port keeps its own).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 from ..crypto.keys import Ed25519PubKey, pubkey_from_type_bytes
+from ..crypto.merkle import AbsenceProof, Proof
 from ..types.block import BlockID, Commit, CommitSig, Header, PartSetHeader
 from ..types.proto import Timestamp
 from ..types.validator import Validator, ValidatorSet
@@ -125,3 +125,43 @@ def validator_set_from_json(d: dict) -> ValidatorSet:
                               int(v.get("proposer_priority", 0))))
     return ValidatorSet(vals)
 
+
+def proof_json(p) -> Optional[dict]:
+    """Inclusion Proof or AbsenceProof → JSON (absence is tagged so a
+    verifying client can never mistake one for the other)."""
+    if p is None:
+        return None
+    if isinstance(p, AbsenceProof):
+        return {"absence": {
+            "left": proof_json(p.left), "left_leaf": p.left_leaf.hex(),
+            "right": proof_json(p.right),
+            "right_leaf": (p.right_leaf.hex()
+                           if p.right_leaf is not None else None)}}
+    return {"total": p.total, "index": p.index,
+            "leaf_hash": p.leaf_hash.hex(),
+            "aunts": [a.hex() for a in p.aunts]}
+
+
+def proof_from_json(d: Optional[dict]):
+    """JSON → Proof | AbsenceProof | None. Malformed input raises
+    (callers on verify paths treat that as verification failure)."""
+    if not d:
+        return None
+    if "absence" in d:
+        a = d["absence"]
+        left = proof_from_json(a["left"])
+        if not isinstance(left, Proof):
+            raise ValueError("absence proof missing left neighbor")
+        right = proof_from_json(a.get("right"))
+        if right is not None and not isinstance(right, Proof):
+            # a nested absence object would crash verify_adjacent with
+            # AttributeError instead of failing verification
+            raise ValueError("absence proof right neighbor must be a "
+                             "plain inclusion proof")
+        rl = a.get("right_leaf")
+        return AbsenceProof(left, bytes.fromhex(a["left_leaf"]),
+                            right,
+                            bytes.fromhex(rl) if rl is not None else None)
+    return Proof(int(d["total"]), int(d["index"]),
+                 bytes.fromhex(d["leaf_hash"]),
+                 [bytes.fromhex(a) for a in d["aunts"]])

@@ -250,7 +250,11 @@ def test_import_leaves_jax_and_reference_unloaded():
         "            'types.vote_set', 'types.extended_commit',\n"
         "            'privval.file', 'evidence.pool', 'consensus.state',\n"
         "            'consensus.reactor', 'consensus.height_vote_set',\n"
-        "            'consensus.ticker'):\n"
+        "            'consensus.ticker', 'config', 'pubsub.query',\n"
+        "            'pubsub.events', 'indexer.kv', 'proxy.multi_app_conn',\n"
+        "            'state.pruner', 'state.rollback', 'mempool.reactor',\n"
+        "            'evidence.reactor', 'statesync.reactor', 'rpc.server',\n"
+        "            'rpc.client', 'node.node', 'cmd.main'):\n"
         "    assert 'cometbft_tpu_torch.' + new in names, (new, names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cometbft_tpu' or m.startswith('cometbft_tpu.')\n"
