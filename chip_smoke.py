@@ -20,8 +20,9 @@ Phases; any failure exits non-zero:
    per source, all started together); then the host C++ sources (csrc/host: the native
    log DB, the p2p link's ChaCha20-Poly1305 and the single-signature
    ed25519 that signs and checks votes) with g++; print the
-   build seconds, the registers and spills ptxas reports, and the card's
-   name and power limit.
+   build seconds, the registers and spills ptxas reports, the card's
+   name and power limit, and `grpc_importable` (whether this host could
+   import the grpc package the gRPC transports would need).
 2. Generate the pipeline's chain from --seed: 121 blocks of a
    200-validator set, 2 txs a block, through the real executor on the
    card (`engine/chain_gen.generate_chain`, as `bench.py:154` sizes
@@ -242,10 +243,29 @@ Phases; any failure exits non-zero:
      or boot error), then consensus runs at 122; its blocks and app hash
      must equal the generator's, and `status` (less identity and clock
      fields), `block`, `commit` and `validators` at 121 from its RPC
-     must equal the server's; (b) a live net of 4 `Node`s on cuda from
-     `cmd.main testnet` homes commits 3 heights, then 8 txs through
-     `broadcast_tx_commit` on one node, read back with `abci_query` and
-     `tx_search` on another;
+     must equal the server's; then, while the server and that laggard
+     still run: (c) a fresh node from `cmd.main init` with `[statesync]`
+     on (rpc_servers: the server and laggard (a), trusting block 1),
+     `[tx_index] indexer = "sqlite"` and `proxy_app = tcp://` to a port
+     `ABCIServer` over a `RecordingApp` in this process, built as
+     `Node(cfg, device="cuda")` with a WebSocket subscriber to NewBlock
+     opened before `start()`: it must refuse snapshot 120 (header 122
+     does not exist), restore 115 through the light client on the card,
+     blocksync 116..121 through the RLC kernels and reach consensus at
+     122, with the generator's app state and hash, the chain's blocks,
+     ABCI calls that pass `check_sequence`, NewBlock 116..121 in order,
+     a `tx_search` through sqlite equal to laggard (a)'s kv indexer,
+     launches = launches_per_call x (anchor + blocksync flushes), no
+     trip or drain; (d) the verifying light proxy
+     (`light/rpc.build_light_proxy`, what `cmd.main light` runs) on cuda
+     over the server, witness laggard (a): abci_query with a proof and
+     an absent key, block, commit and validators at 60 and 120, each
+     equal to the server's answer; a proxy over a stub that forges the
+     block at 90 must refuse it; (e) `cmd.main bootstrap-state --height
+     115 --device cuda` into a fresh home writes (c)'s state at 115; (b)
+     a live net of 4 `Node`s on cuda from `cmd.main testnet` homes
+     commits 3 heights, then 8 txs through `broadcast_tx_commit` on one
+     node, read back with `abci_query` and `tx_search` on another;
    - `pt_add_tiled`, off the node path as in the JAX package: the
      op-level A/B (`tools/ab_pallas.py`), kernel and plain version timed
      at 8192 lanes.
@@ -256,8 +276,10 @@ Phases; any failure exits non-zero:
    rows with the launches of their own paths, the aggregated catch-up
    and the multi-group `verify_commit`, and of seal sync's passes; the
    p2p phase's launches of each; the consensus phase's launches of the
-   RLC kernels and of the BLS kernels; the node boot's launches), a
-   `node boot:` line, a timing line with the catch-up
+   RLC kernels and of the BLS kernels; the node boot's launches, and
+   those of its statesync, light proxy and bootstrap-state parts),
+   `node boot:`, `statesync:` and `light proxy:` lines, a timing line
+   with the catch-up
    sigs/s and
    where the sync's time goes, the pipelined depths' medians and
    spreads, the server's stats, the light client's headers/s and the
@@ -4396,8 +4418,16 @@ def _status_core(st: dict) -> dict:
     return st
 
 
+def _bls_since(bls0: dict) -> dict:
+    """The BLS kernels' launches since `bls0`, a copy of `bls12.LAUNCHES`
+    taken where a counted window began."""
+    from cometbft_tpu_torch.ops import bls12
+    return {k: bls12.LAUNCHES[k] - bls0.get(k, 0) for k in bls12.LAUNCHES}
+
+
 def run_node_catchup(torch, pkg, chain, gen_app, per_call: dict,
-                     root: str) -> dict:
+                     root: str, server: "ServingNode", srv_p2p: int,
+                     srv_rpc: int) -> tuple:
     """Part (a): node boot through the entry points. A serving node
     (`ServingNode`, `cmd.main start --device cpu`) holds the 121-block,
     200-validator chain in FileDB stores and replays it into a fresh
@@ -4409,7 +4439,9 @@ def run_node_catchup(torch, pkg, chain, gen_app, per_call: dict,
     starts consensus. The shared signature cache is reset first (the
     earlier phases verified these signatures); the batch's bucket is
     warmed before the counts are zeroed, so the node's own prewarm finds
-    it warm and every counted launch is the sync's (FlushCount)."""
+    it warm and every counted launch is the sync's (FlushCount).
+    -> (figures, the laggard, still running: parts (c)-(e) use its RPC as
+    their witness; the caller stops it)."""
     from cometbft_tpu_torch.cmd.main import main as cli
     from cometbft_tpu_torch.config import Config
     from cometbft_tpu_torch.node.node import BOOT_TILE, Node, save_genesis
@@ -4418,11 +4450,7 @@ def run_node_catchup(torch, pkg, chain, gen_app, per_call: dict,
     from cometbft_tpu_torch.rpc.client import RPCClient
     ped = pkg["ped"]
     top = chain.max_height()
-    srv_home, lag_home = os.path.join(root, "server"), os.path.join(
-        root, "laggard")
-    srv_p2p, srv_rpc = _free_port(), _free_port()
-    home_s = _write_node_home(chain, srv_home, srv_p2p, srv_rpc)
-    server = ServingNode(srv_home)
+    lag_home = os.path.join(root, "laggard")
     node = clock = None
     try:
         assert cli(["init", "--home", lag_home, "--chain-id",
@@ -4455,6 +4483,7 @@ def run_node_catchup(torch, pkg, chain, gen_app, per_call: dict,
         if node.boot_error is not None:
             raise AssertionError(f"node boot: {node.boot_error!r}")
         flushes = count.read("node boot")
+        bls_launches = _bls_since(bls0)
         clock.close()
         engine = node.boot_engine
         syncs = [{"wall_s": b - a, "error": e} for a, b, e in clock.calls]
@@ -4498,7 +4527,7 @@ def run_node_catchup(torch, pkg, chain, gen_app, per_call: dict,
         return {
             "validators": VALIDATORS, "blocks": top, "tile": BOOT_TILE,
             "batch": batch, "depth": engine.pipeline_depth,
-            "home_s": home_s, "server_start_s": server.start_s,
+            "server_start_s": server.start_s,
             "construct_s": construct_s, "prewarm_s": prewarm_s,
             "sync_s": sync_s, "syncs": syncs,
             "boot_to_consensus_s": consensus_s,
@@ -4509,18 +4538,15 @@ def run_node_catchup(torch, pkg, chain, gen_app, per_call: dict,
             "flushes_per_tile": flushes["flushes"] / max(
                 engine.stats.tiles_flushed, 1),
             "canary": canary, "drains": drains,
-            "bls_launches": {k: bls12.LAUNCHES[k] - bls0.get(k, 0)
-                             for k in bls12.LAUNCHES},
-            "rpc_ms": rpc_ms, "rpc_answer_bytes": answers}
+            "bls_launches": bls_launches,
+            "rpc_ms": rpc_ms, "rpc_answer_bytes": answers}, node
+    except BaseException:
+        if node is not None:
+            node.stop()
+        raise
     finally:
         if clock is not None:
             clock.close()
-        if node is not None:
-            node.stop()
-        rc = server.stop()
-        if rc != 0:
-            raise RuntimeError(f"the serving node exited {rc}: "
-                               f"{server._stderr()}")
 
 
 def run_node_net(torch, root: str) -> dict:
@@ -4591,18 +4617,472 @@ def run_node_net(torch, root: str) -> dict:
             "tips": tips}
 
 
-def run_node_boot(torch, pkg, chain, gen_app, per_call: dict) -> dict:
-    """The node-boot phase: (a) `run_node_catchup`, (b) `run_node_net`,
-    in a directory under build/ removed after."""
+SS_SNAPSHOT = 115       # the snapshot (c) restores (120 cannot be anchored)
+SS_TRUST_PERIOD_S = 10**9  # the chain's headers are stamped in 2023
+PROXY_HEIGHTS = (60, 120)  # (d)'s block, commit and validators reads
+PROXY_FORGED_AT = 90     # the stub's forged block
+
+
+class WsSubscriber:
+    """A port `rpc/websocket.WSClient` of a node's RPC: the upgrade and a
+    `subscribe` are sent at construction, before the node serves, then a
+    reader thread collects every frame's JSON."""
+
+    def __init__(self, addr, query: str):
+        import threading
+        from cometbft_tpu_torch.rpc.websocket import WSClient
+        self.ws = WSClient(addr, timeout=NODE_DEADLINE_S)
+        self.ws.send(json.dumps({"jsonrpc": "2.0", "id": 1,
+                                 "method": "subscribe",
+                                 "params": {"query": query}}).encode())
+        self.frames: list = []
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        from cometbft_tpu_torch.rpc.websocket import frame_payload
+        try:
+            self.ws.handshake()
+            while True:
+                self.frames.append(json.loads(frame_payload(
+                    self.ws.frame())))
+        except (OSError, ValueError):
+            return
+
+    def heights(self) -> list:
+        return [int(f["params"]["attrs"]["block.height"][0])
+                for f in self.frames if f.get("method") == "event"]
+
+    def close(self) -> None:
+        self.ws.close()
+        self.thread.join(timeout=10)
+
+
+class StatesyncClock:
+    """Seconds of the statesync steps of a node's boot while in use:
+    `Node._run_statesync` (its start and end, and the canary's dispatches
+    and the signatures in the shared signature cache at its end), the
+    light client's trust root (`light_provider_from_config`), each
+    `Syncer.sync`, and the anchor's provider calls
+    (`LightStateProvider.app_hash`, `.state`)."""
+
+    def __init__(self, ped):
+        from cometbft_tpu_torch import statesync
+        from cometbft_tpu_torch.node.node import Node
+        from cometbft_tpu_torch.pipeline.cache import shared_cache
+        from cometbft_tpu_torch.statesync.stateprovider import \
+            LightStateProvider
+        from cometbft_tpu_torch.statesync.syncer import Syncer
+        self.t: dict = {"anchor_s": 0.0, "syncs": []}
+        self.undo = []
+        t = self.t
+
+        def wrap(owner, name, fn):
+            orig = getattr(owner, name)
+            self.undo.append((owner, name, orig))
+            setattr(owner, name, fn(orig))
+
+        def run(orig):
+            def timed(node):
+                t["start"] = time.perf_counter()
+                try:
+                    return orig(node)
+                finally:
+                    t["end"] = time.perf_counter()
+                    t["dispatches_at_end"] = ped.canary_stats()
+                    t["sigs_at_end"] = len(shared_cache())
+            return timed
+
+        def root(orig):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **kw)
+                finally:
+                    t["trust_root_s"] = time.perf_counter() - t0
+            return timed
+
+        def sync(orig):
+            def timed(syncer):
+                t0 = time.perf_counter()
+                try:
+                    return orig(syncer)
+                finally:
+                    t["syncs"].append((t0, time.perf_counter()))
+            return timed
+
+        def anchor(orig):
+            def timed(provider, height):
+                t0 = time.perf_counter()
+                try:
+                    return orig(provider, height)
+                finally:
+                    t["anchor_s"] += time.perf_counter() - t0
+            return timed
+        wrap(Node, "_run_statesync", run)
+        wrap(statesync, "light_provider_from_config", root)
+        wrap(Syncer, "sync", sync)
+        wrap(LightStateProvider, "app_hash", anchor)
+        wrap(LightStateProvider, "state", anchor)
+
+    def close(self) -> None:
+        for owner, name, orig in reversed(self.undo):
+            setattr(owner, name, orig)
+        self.undo = []
+
+
+def _statesync_config(cfg, chain, rpc_servers: str) -> None:
+    cfg.statesync.rpc_servers = rpc_servers
+    cfg.statesync.trust_height = 1
+    cfg.statesync.trust_hash = chain.blocks[0].hash().hex()
+    # the generator stamps block h at 1,700,000,000 + h s (Nov. 2023): a
+    # trust period long enough for that, as the light phase takes
+    cfg.statesync.trust_period_seconds = SS_TRUST_PERIOD_S
+
+
+def run_node_statesync(torch, pkg, chain, gen_app, per_call: dict,
+                       root: str, srv_p2p: int, srv_rpc: int, lag) -> dict:
+    """Part (c): a fresh node statesyncs on the card. Made by `cmd.main
+    init` with the chain's genesis, the server as its persistent peer,
+    `[statesync]` on (rpc_servers: the server, primary, and laggard (a),
+    witness; trusting block 1), `[tx_index] indexer = "sqlite"`, and its
+    kvstore behind a port `ABCIServer` in this process (`proxy_app =
+    tcp://`, a `RecordingApp`). Built as `Node(cfg, device="cuda")`; a
+    WebSocket subscriber to NewBlock opens before `start()`. Its boot
+    discovers the server's snapshots (120 and 115) on the p2p statesync
+    channel, anchors through the light client on the card (120 needs
+    header 122, which does not exist: refused), restores 115 over the
+    socket, persists the state and seen commit, blocksyncs 116..121
+    through the RLC kernels and starts consensus at 122. The shared
+    signature cache is reset first (FlushCount)."""
+    from cometbft_tpu_torch.abci.grammar import RecordingApp
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.abci.socket import ABCIServer
+    from cometbft_tpu_torch.cmd.main import main as cli
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.node.node import Node, save_genesis
+    from cometbft_tpu_torch.ops import bls12
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.rpc.client import RPCClient
+    ped = pkg["ped"]
+    top = chain.max_height()
+    home = os.path.join(root, "statesync")
+    app = RecordingApp(KVStoreApplication())
+    abci = ABCIServer(app)
+    abci.start()
+    node = ws = clock = ss_clock = None
+    try:
+        assert cli(["init", "--home", home, "--chain-id",
+                    chain.chain_id]) == 0
+        cfg = Config.load(home)
+        save_genesis(chain.genesis, cfg.path(cfg.base.genesis_file))
+        cfg.base.moniker = "statesync"
+        cfg.base.proxy_app = "tcp://%s:%d" % abci.addr
+        cfg.p2p.laddr = cfg.rpc.laddr = "127.0.0.1:0"
+        cfg.p2p.persistent_peers = f"127.0.0.1:{srv_p2p}"
+        cfg.statesync.enable = True
+        _statesync_config(cfg, chain, f"127.0.0.1:{srv_rpc},"
+                          "%s:%d" % lag.rpc_server.addr)
+        cfg.tx_index.indexer = "sqlite"
+        cfg.write()
+        reset_shared_cache()
+        t0 = time.perf_counter()
+        node = Node(Config.load(home), device="cuda")
+        construct_s = time.perf_counter() - t0
+        ws = WsSubscriber(node.rpc_server.addr, "tm.event = 'NewBlock'")
+        canary0 = ped.canary_stats()
+        clock, ss_clock = SyncClock(), StatesyncClock(ped)
+        bls0 = dict(bls12.LAUNCHES)
+        count = FlushCount(torch, pkg, per_call)
+        t0 = time.perf_counter()
+        node.start()
+        consensus_s = _wait(lambda: node.boot_error is not None or (
+            node.consensus._thread is not None and
+            node.consensus.rs.height > top), f"the statesync node's "
+            f"consensus at {top + 1}", NODE_DEADLINE_S)
+        if node.boot_error is not None:
+            raise AssertionError(f"statesync: {node.boot_error!r}")
+        flushes = count.read("statesync")
+        bls_launches = _bls_since(bls0)
+        t = ss_clock.t
+        anchor_flushes = (t["dispatches_at_end"]["dispatches"]
+                          - canary0["dispatches"])
+        anchor_canaries = t["dispatches_at_end"]["runs"] - canary0["runs"]
+        syncs = [{"wall_s": b - a, "error": e} for a, b, e in clock.calls]
+        canary = {k: ped.canary_stats()[k] - canary0[k] for k in canary0}
+        drains = node.pipeline_metrics.wedge_fallbacks.value()
+        if canary["trips"] or drains or any(x["error"] for x in syncs):
+            raise AssertionError(f"statesync: trips {canary['trips']}, "
+                                 f"drains {drains}, syncs {syncs}")
+        refused = node.statesync_syncer.refused
+        boot = node.statesync_state
+        if boot is None or boot.last_block_height != SS_SNAPSHOT or \
+                [h for h, _ in refused] != [SS_SNAPSHOT + 5] or \
+                "ErrLightBlockNotFound" not in refused[0][1]:
+            raise AssertionError(f"statesync: restored "
+                                 f"{boot and boot.last_block_height}, "
+                                 f"refused {refused}")
+        if app._app.state != gen_app.state or \
+                app._app.last_app_hash != gen_app.last_app_hash or \
+                node.consensus.state.app_hash != gen_app.last_app_hash or \
+                node.consensus.state.last_block_height != top or \
+                node.block_store.load_block(SS_SNAPSHOT) is not None or \
+                [node.block_store.load_block(h).hash()
+                 for h in range(SS_SNAPSHOT + 1, top + 1)] != \
+                [b.hash() for b in chain.blocks[SS_SNAPSHOT:top]]:
+            raise AssertionError("statesync: the app, app hash or blocks "
+                                 "differ from the generator's")
+        grammar_ok, grammar_err = app.check()
+        calls = list(app.calls)
+        if not grammar_ok or calls[:2] != ["init_chain", "offer_snapshot"]:
+            raise AssertionError(f"statesync: ABCI calls {calls}: "
+                                 f"{grammar_err}")
+        _wait(lambda: ws.heights()[-(top - SS_SNAPSHOT):] ==
+              list(range(SS_SNAPSHOT + 1, top + 1)), "NewBlock over the "
+              "WebSocket", 30)
+        if ws.heights() != list(range(SS_SNAPSHOT + 1, top + 1)):
+            raise AssertionError(f"statesync: WebSocket NewBlock heights "
+                                 f"{ws.heights()}")
+        query = f"tx.height = {SS_SNAPSHOT + 3}"
+        mine = RPCClient(*node.rpc_server.addr, timeout=60)
+        theirs = RPCClient(*lag.rpc_server.addr, timeout=60)
+        _wait(lambda: mine.call("tx_search", query=query)["total_count"],
+              "the sqlite index", 30)
+        found = mine.call("tx_search", query=query)
+        if not found["total_count"] or \
+                found != theirs.call("tx_search", query=query):
+            raise AssertionError(f"statesync: tx_search {query} through "
+                                 f"sqlite {found} differs from the kv "
+                                 f"indexer's")
+        engine = node.boot_engine
+        sync_s = sum(x["wall_s"] for x in syncs)
+        first, last = t["syncs"][0][0], t["syncs"][-1][1]
+        sync_total = sum(b - a for a, b in t["syncs"])
+        anchor_s = t["anchor_s"] + t["trust_root_s"]
+        return {
+            "snapshot": SS_SNAPSHOT, "refused": refused,
+            "construct_s": construct_s,
+            "statesync_s": t["end"] - t["start"],
+            "discovery_s": first - t["start"] - t["trust_root_s"],
+            "trust_root_s": t["trust_root_s"], "anchor_s": anchor_s,
+            "restore_s": sync_total - t["anchor_s"],
+            "syncer_calls": len(t["syncs"]),
+            "persist_s": t["end"] - last,
+            "blocksync_s": sync_s, "syncs": syncs,
+            "boot_to_consensus_s": consensus_s,
+            "anchor_flushes": anchor_flushes,
+            "anchor_canaries": anchor_canaries,
+            "anchor_sigs": t["sigs_at_end"],
+            "anchor_sigs_per_s": t["sigs_at_end"] / anchor_s,
+            "blocksync_flushes": flushes["flushes"] - anchor_flushes,
+            "flush_count": flushes, "launches": flushes["launches"],
+            "bls_launches": bls_launches,
+            "blocksync_sigs": engine.stats.sigs_verified,
+            "blocksync_sigs_per_s": engine.stats.sigs_verified / sync_s,
+            "canary": canary, "drains": drains, "abci_calls": len(calls),
+            "websocket_heights": ws.heights(), "tx_search": found,
+            "state": boot}
+    finally:
+        for c in (clock, ss_clock):
+            if c is not None:
+                c.close()
+        if ws is not None:
+            ws.close()
+        if node is not None:
+            node.stop()
+        abci.stop()
+
+
+def _verified_reads(proxy, server, chain, gen_app) -> dict:
+    """(d)'s reads through the proxy, each held against the server's own
+    answer -> ms a read."""
+    from cometbft_tpu_torch.light.provider import fetch_all_validators
+    from cometbft_tpu_torch.rpc.client import RPCClient
+    c = RPCClient(*proxy.addr, timeout=120)
+    key = sorted(k for k in gen_app.prev_state
+                 if gen_app.prev_state[k])[0].encode()
+    reads = [("abci_query", {"path": "/store", "data": key.hex()},
+              lambda: server.abci_query_prove("/store", key)),
+             ("abci_query_absent", {"path": "/store",
+                                    "data": b"no-such-key".hex()},
+              lambda: server.abci_query_prove("/store", b"no-such-key"))]
+    for h in PROXY_HEIGHTS:
+        reads += [("block", {"height": h},
+                   lambda h=h: server.call("block", height=h)),
+                  ("commit", {"height": h},
+                   lambda h=h: server.call("commit", height=h)),
+                  ("validators", {"height": h},
+                   lambda h=h: fetch_all_validators(server, height=h))]
+    ms = {}
+    for name, params, want in reads:
+        method = name.split("_absent")[0]
+        t0 = time.perf_counter()
+        got = c.call(method, **params)
+        ms[f"{name}@{params.get('height', '')}"] = \
+            (time.perf_counter() - t0) * 1e3
+        if got != want():
+            raise AssertionError(f"light proxy: {name} {params} differs "
+                                 f"from the server's")
+        if name == "abci_query" and not (got["value"] and got["proof"]):
+            raise AssertionError("light proxy: abci_query without proof")
+    return ms
+
+
+def run_light_proxy(torch, pkg, chain, gen_app, per_call: dict,
+                    srv_rpc: int, lag) -> dict:
+    """Part (d): the verifying light proxy on the card, built by
+    `light/rpc.build_light_proxy` (what `cmd.main light` runs) with the
+    server as primary and laggard (a) as witness, trusting block 1:
+    abci_query (a key with its proof, an absent key), and block, commit
+    and validators at two heights, each equal to the server's answer;
+    then a proxy over a one-route stub in front of the server (its block
+    at PROXY_FORGED_AT with a forged tx) must refuse that block. The
+    shared signature cache is reset first (FlushCount)."""
+    from cometbft_tpu_torch.light.rpc import build_light_proxy
+    from cometbft_tpu_torch.ops import bls12
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.rpc.client import RPCClient, RPCClientError
+    from cometbft_tpu_torch.rpc.server import RPCServer
+    server = RPCClient("127.0.0.1", srv_rpc, timeout=120)
+    witness = "%s:%d" % lag.rpc_server.addr
+    root_hash = chain.blocks[0].hash().hex()
+    reset_shared_cache()
+    bls0 = dict(bls12.LAUNCHES)
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    proxy = build_light_proxy(chain.chain_id, f"127.0.0.1:{srv_rpc}",
+                              [witness], trusted_height=1,
+                              trusted_hash=root_hash,
+                              trust_period=SS_TRUST_PERIOD_S, device="cuda")
+    build_s = time.perf_counter() - t0
+    proxy.start()
+    try:
+        ms = _verified_reads(proxy, server, chain, gen_app)
+        if proxy.fatal is not None:
+            raise AssertionError(f"light proxy: {proxy.fatal!r}")
+    finally:
+        proxy.stop()
+    flushes = count.read("light proxy")
+    bls_launches = _bls_since(bls0)
+
+    def forged_block(**kw):
+        r = server.call("block", **kw)
+        if int(kw.get("height", 0)) == PROXY_FORGED_AT:
+            r["block"]["data"]["txs"][0] = b"forged=1".hex()
+        return r
+    methods = {n: (lambda n=n: lambda **kw: server.call(n, **kw))()
+               for n in ("health", "status", "commit", "header",
+                         "validators", "abci_query")}
+    methods["block"] = forged_block
+    stub = RPCServer(None, "127.0.0.1", 0, methods=methods)
+    stub.start()
+    liar = build_light_proxy(chain.chain_id, "%s:%d" % stub.addr,
+                             [witness], trusted_height=1,
+                             trusted_hash=root_hash,
+                             trust_period=SS_TRUST_PERIOD_S, device="cuda")
+    liar.start()
+    try:
+        RPCClient(*liar.addr, timeout=120).call("block",
+                                                height=PROXY_FORGED_AT)
+        refused = None
+    except RPCClientError as e:
+        refused = str(e)
+    finally:
+        liar.stop()
+        stub.stop()
+    if refused is None or not refused.startswith("-32001"):
+        raise AssertionError(f"light proxy: the forged block at "
+                             f"{PROXY_FORGED_AT} was not refused: {refused}")
+    return {"build_s": build_s, "read_ms": ms,
+            "ms_per_read": float(np.mean(list(ms.values()))),
+            "reads": len(ms), "flush_count": flushes,
+            "launches": flushes["launches"], "bls_launches": bls_launches,
+            "forged_refused": refused}
+
+
+def run_bootstrap_state(torch, pkg, chain, per_call: dict, root: str,
+                        srv_rpc: int, lag, ss_node_state) -> dict:
+    """Part (e): `cmd.main bootstrap-state --height 115 --device cuda`
+    into a fresh home from `cmd.main init` (the chain's genesis, the
+    server and laggard (a) as rpc_servers, trusting block 1): its state
+    store must hold the state (c) bootstrapped at 115, byte for byte."""
+    from cometbft_tpu_torch.cmd.main import main as cli
+    from cometbft_tpu_torch.config import Config
+    from cometbft_tpu_torch.db.kv import open_db
+    from cometbft_tpu_torch.node.node import save_genesis
+    from cometbft_tpu_torch.ops import bls12
+    from cometbft_tpu_torch.pipeline.cache import reset_shared_cache
+    from cometbft_tpu_torch.state.state import StateStore, _state_to_json
+    home = os.path.join(root, "bootstrap")
+    assert cli(["init", "--home", home, "--chain-id", chain.chain_id]) == 0
+    cfg = Config.load(home)
+    save_genesis(chain.genesis, cfg.path(cfg.base.genesis_file))
+    _statesync_config(cfg, chain, f"127.0.0.1:{srv_rpc},"
+                      "%s:%d" % lag.rpc_server.addr)
+    cfg.write()
+    reset_shared_cache()
+    bls0 = dict(bls12.LAUNCHES)
+    count = FlushCount(torch, pkg, per_call)
+    t0 = time.perf_counter()
+    rc = cli(["bootstrap-state", "--home", home, "--height",
+              str(SS_SNAPSHOT), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    flushes = count.read("bootstrap-state")
+    bls_launches = _bls_since(bls0)
+    db = open_db(cfg.base.db_backend, "state", cfg.path(cfg.base.db_dir))
+    got = StateStore(db).load()
+    db.close()
+    if rc != 0 or got is None or \
+            _state_to_json(got) != _state_to_json(ss_node_state):
+        raise AssertionError(f"bootstrap-state: rc {rc}, its state differs "
+                             f"from the statesync node's at {SS_SNAPSHOT}")
+    return {"wall_s": wall, "flush_count": flushes,
+            "launches": flushes["launches"], "bls_launches": bls_launches}
+
+
+def run_node_boot(torch, pkg, chain, gen_app, per_call: dict,
+                  laps) -> dict:
+    """The node-boot phase, in a directory under build/ removed after:
+    the serving child comes up once; (a) `run_node_catchup`, then, while
+    the server and laggard (a) still run, (c) `run_node_statesync`, (d)
+    `run_light_proxy`, (e) `run_bootstrap_state`; then (b)
+    `run_node_net`."""
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="chip_smoke_node_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
     t0 = time.perf_counter()
     try:
-        out = {"catchup": run_node_catchup(torch, pkg, chain, gen_app,
-                                           per_call, root),
-               "net": run_node_net(torch, root)}
+        srv_home = os.path.join(root, "server")
+        srv_p2p, srv_rpc = _free_port(), _free_port()
+        out = {"home_s": _write_node_home(chain, srv_home, srv_p2p,
+                                          srv_rpc)}
+        server = ServingNode(srv_home)
+        lag = None
+        try:
+            out["catchup"], lag = run_node_catchup(
+                torch, pkg, chain, gen_app, per_call, root, server,
+                srv_p2p, srv_rpc)
+            laps("node boot (a)")
+            out["statesync"] = run_node_statesync(
+                torch, pkg, chain, gen_app, per_call, root, srv_p2p,
+                srv_rpc, lag)
+            laps("node boot (c) statesync")
+            out["light_proxy"] = run_light_proxy(
+                torch, pkg, chain, gen_app, per_call, srv_rpc, lag)
+            laps("node boot (d) light proxy")
+            out["bootstrap_state"] = run_bootstrap_state(
+                torch, pkg, chain, per_call, root, srv_rpc, lag,
+                out["statesync"].pop("state"))
+            laps("node boot (e) bootstrap-state")
+        finally:
+            if lag is not None:
+                lag.stop()
+            rc = server.stop()
+            if rc != 0:
+                raise RuntimeError(f"the serving node exited {rc}: "
+                                   f"{server._stderr()}")
+        out["net"] = run_node_net(torch, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["pass_s"] = time.perf_counter() - t0
@@ -4632,6 +5112,34 @@ def print_node_boot(boot: dict, gpu: str) -> None:
           f"in {n['wall_s']:.3f} s ({n['s_per_height']:.3f} s a height), "
           f"{len(n['tx_ms'])} broadcast_tx_commit "
           f"{n['tx_ms_median']:.1f} ms median a tx; {gpu}", flush=True)
+    ss, lp, bs = boot["statesync"], boot["light_proxy"], \
+        boot["bootstrap_state"]
+    print(f"statesync: a fresh Node(device=cuda) from `cmd init` "
+          f"([statesync] on, proxy_app tcp:// to a RecordingApp, sqlite "
+          f"indexer) restored snapshot {ss['snapshot']} (refused "
+          f"{[h for h, _ in ss['refused']]}) and blocksynced to the tip: "
+          f"discovery {ss['discovery_s']:.3f} s, anchor "
+          f"{ss['anchor_s']:.3f} s (trust root {ss['trust_root_s']:.3f} s; "
+          f"{ss['anchor_flushes']} flushes, {ss['anchor_canaries']} canary "
+          f"runs, {ss['anchor_sigs']} sigs, {ss['anchor_sigs_per_s']:.1f} "
+          f"sigs/s), restore {ss['restore_s']:.3f} s, persist "
+          f"{ss['persist_s']:.3f} s, blocksync {ss['blocksync_s']:.3f} s "
+          f"({ss['blocksync_flushes']} flushes, {ss['blocksync_sigs']} "
+          f"sigs, {ss['blocksync_sigs_per_s']:.1f} sigs/s), consensus at "
+          f"the next height {ss['boot_to_consensus_s']:.3f} s after "
+          f"start(); RLC launches {ss['launches']}; {ss['abci_calls']} "
+          f"ABCI calls pass check_sequence; WebSocket NewBlock "
+          f"{ss['websocket_heights']}; trips {ss['canary']['trips']}, "
+          f"drains {ss['drains']}; {gpu}", flush=True)
+    print(f"light proxy: build_light_proxy on cuda (trust root "
+          f"{lp['build_s']:.3f} s), {lp['reads']} verified reads equal to "
+          f"the server's, {lp['ms_per_read']:.1f} ms a read ({lp['read_ms']}"
+          f"), {lp['flush_count']['flushes']} flushes, "
+          f"{lp['flush_count']['canaries']} canary runs; forged block "
+          f"refused ({lp['forged_refused']}); bootstrap-state --device cuda "
+          f"at {ss['snapshot']} in {bs['wall_s']:.3f} s "
+          f"({bs['flush_count']['flushes']} flushes), its state equal to "
+          f"the statesync node's; {gpu}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -4690,6 +5198,11 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 print(f"ptxas {name}: {line.strip()}")
     print(f"gpu: {gpu}", flush=True)
+    # whether the gRPC transports (ROADMAP.md Queue 1 items 11.2, 11.4)
+    # could run on this host: the port does not import grpc
+    import importlib.util
+    print(f"grpc_importable: {importlib.util.find_spec('grpc') is not None}",
+          flush=True)
     laps("build")
 
     # phase 2: the chains, from --seed, and the seam's tile
@@ -4834,9 +5347,9 @@ def main(argv=None) -> int:
                          args.seed, per_call)
     print_consensus(cons, gpu)
     laps("consensus")
-    boot = run_node_boot(torch, pkg, pipe_chain, pipe_app, per_call)
+    boot = run_node_boot(torch, pkg, pipe_chain, pipe_app, per_call, laps)
     print_node_boot(boot, gpu)
-    laps("node boot")
+    laps("node boot (b)")
 
     cv.reset_launches()
     run_pt_add_ab(torch, pkg, add_args, report)
@@ -4876,6 +5389,8 @@ def main(argv=None) -> int:
                 "catchup": cons["catchup"]["launches"][name],
                 "add_votes": cons["add_votes"]["launches"][name]},
             "launches_node_boot": boot["catchup"]["launches"][name],
+            **{f"launches_{part}": boot[part]["launches"][name]
+               for part in ("statesync", "light_proxy", "bootstrap_state")},
             **{k: r[k] for k in ("launches_per_call",
                                  "launches_per_call_profiled", "lanes", "m")
                if k in r}}
@@ -4895,6 +5410,8 @@ def main(argv=None) -> int:
             for k in ("forged", "adopt")}
         row["launches_node_boot"] = \
             boot["catchup"]["bls_launches"].get(row["name"], 0)
+        for part in ("statesync", "light_proxy", "bootstrap_state"):
+            row[f"launches_{part}"] = boot[part]["bls_launches"][row["name"]]
     for fig in (sync, bad):
         fig["verify_s"] = fig["span_s"].get("blocksync.verify", 0.0)
         fig["fetch_s"] = fig["span_s"].get("blocksync.fetch", 0.0)

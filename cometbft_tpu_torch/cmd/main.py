@@ -10,15 +10,23 @@ rollback, reset, inspect, light, compact).
     python -m cometbft_tpu_torch.cmd.main show-validator --home DIR
     python -m cometbft_tpu_torch.cmd.main inspect --home DIR
     python -m cometbft_tpu_torch.cmd.main compact --home DIR
+    python -m cometbft_tpu_torch.cmd.main bootstrap-state --home DIR \
+        [--height H] [--device cpu]
+    python -m cometbft_tpu_torch.cmd.main light CHAIN_ID --primary H:P \
+        --witnesses H:P --trusted-height N --trusted-hash HEX [--device cpu]
+    python -m cometbft_tpu_torch.cmd.main abci-cli echo|info|query|check_tx \
+        [ARG] --address tcp://H:P
 
-Copy of `cometbft_tpu/cmd/main.py` in the port. `start --device` names
-the torch device the node verifies on (default cuda; `cpu` runs every
-kernel's plain version, and blocksync natively). There is no compile
-cache to enable: the CUDA kernels build at first use into `build/`
-(`ops/_build.py`). `start` exits 1 when the node's boot fails (a kernel
-build, launch or canary fault during the boot sync). `light`,
-`bootstrap-state` and `abci-cli` raise NotImplementedError: the modules
-they need are not ported (ROADMAP.md Queue 1).
+Copy of `cometbft_tpu/cmd/main.py` in the port. `start`,
+`bootstrap-state` and `light` take `--device`, the torch device they
+verify on (default cuda; `cpu` runs every kernel's plain version, and a
+node's blocksync natively). There is no compile cache to enable: the CUDA
+kernels build at first use into `build/` (`ops/_build.py`). `start` exits
+1 when the node's boot fails (a kernel build, launch or canary fault
+during the statesync anchor or the boot sync); `bootstrap-state` lets
+such an error out, and `light` exits 1 on it. `abci-cli` speaks the
+socket transport; a `grpc://` address raises NotImplementedError (gRPC
+needs the grpcio package, ROADMAP.md Queue 1 item 11.4).
 """
 
 from __future__ import annotations
@@ -173,10 +181,39 @@ def cmd_bootstrap_state(args) -> int:
     [statesync] rpc_servers and write it (plus the seen commit) into
     the stores, so the next `start` continues from there without
     replaying history. The app must separately hold matching state
-    (e.g. restored from its own snapshot/backup)."""
-    raise NotImplementedError(
-        "bootstrap-state needs the statesync state provider, not ported "
-        "yet (ROADMAP.md Queue 1 item 11.1)")
+    (e.g. restored from its own snapshot/backup). The light client runs
+    on `--device` (default cuda); its errors propagate."""
+    from ..db.kv import open_db
+    from ..node.node import load_genesis
+    from ..state.state import StateStore
+    from ..statesync.stateprovider import light_provider_from_config
+    from ..store.blockstore import BlockStore
+    cfg = _cfg(args.home)
+    ss_cfg = cfg.statesync
+    ss_cfg.enable = True  # reuse its validation for the trust anchor
+    ss_cfg.validate_basic()
+    gen = load_genesis(cfg.path(cfg.base.genesis_file))
+    ddir = cfg.path(cfg.base.db_dir)
+    store = StateStore(open_db(cfg.base.db_backend, "state", ddir))
+    existing = store.load()
+    if existing is not None and existing.last_block_height > 0:
+        # reference BootstrapState refuses a non-empty state store: the
+        # app and block store still hold the old height, and clobbering
+        # the state would desync all three with no error until start
+        print(f"refusing to bootstrap: state store already at height "
+              f"{existing.last_block_height} (run `reset` first if you "
+              f"really mean to discard it)", file=sys.stderr)
+        return 1
+    provider = light_provider_from_config(ss_cfg, gen,
+                                          device=args.device or None)
+    height = args.height or ss_cfg.trust_height
+    state = provider.state(height)
+    store.save(state)
+    BlockStore(open_db(cfg.base.db_backend, "blockstore", ddir)) \
+        .bootstrap_seen_commit(height, provider.commit(height))
+    print(f"bootstrapped state at height {height} "
+          f"(app_hash {state.app_hash.hex()[:16]})")
+    return 0
 
 
 def cmd_reset(args) -> int:
@@ -248,20 +285,67 @@ def cmd_compact(args) -> int:
 def cmd_light(args) -> int:
     """Run a light-client proxy against a full node (reference
     cmd/cometbft/commands/light.go): all reads served from --laddr are
-    verified against light-client-checked headers."""
-    raise NotImplementedError(
-        "light needs light/rpc.py (the verifying proxy), not ported yet "
-        "(ROADMAP.md Queue 1 item 11.5)")
+    verified against light-client-checked headers. Exits 1 when a read
+    fails for a reason that is not the peers' fault (a kernel fault:
+    `LightProxy.fatal`)."""
+    import time
+    from ..light.rpc import build_light_proxy
+    proxy = build_light_proxy(
+        args.chain_id, args.primary, args.witnesses.split(","),
+        laddr=args.laddr, trusted_height=args.trusted_height,
+        trusted_hash=args.trusted_hash, trust_period=args.trust_period,
+        device=args.device or None)
+    proxy.start()
+    t_height = proxy.client.light.latest_trusted().height
+    print(f"light proxy listening on {proxy.addr} "
+          f"(primary {args.primary}, trusted height {t_height}, device "
+          f"{proxy.client.light.device})", flush=True)
+    try:
+        while proxy.fatal is None:
+            time.sleep(0.2)
+        print(f"light proxy failed: {proxy.fatal!r}", file=sys.stderr,
+              flush=True)
+        return 1
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        proxy.stop()
 
 
 def cmd_abci_cli(args) -> int:
     """Minimal abci-cli (reference abci/cmd/abci-cli): poke an ABCI
     server — echo / info / query / check_tx — for debugging external
-    apps before pointing a node at them. grpc:// addresses use the
-    gRPC transport (reference abci-cli --abci grpc)."""
-    raise NotImplementedError(
-        "abci-cli needs abci/socket.py and abci/grpc.py, not ported yet "
-        "(ROADMAP.md Queue 1 item 11.4)")
+    apps before pointing a node at them. The socket transport only: a
+    grpc:// address raises (the gRPC client is not ported)."""
+    addr = args.address
+    if addr.startswith("grpc://"):
+        raise NotImplementedError(
+            "abci-cli over grpc:// needs abci/grpc.py and the grpcio "
+            "package, not ported yet (ROADMAP.md Queue 1 item 11.4)")
+    from ..abci.socket import SocketClient
+    host, _, port = addr.removeprefix("tcp://").rpartition(":")
+    c = SocketClient(host or "127.0.0.1", int(port), connect_retry_s=5.0)
+    try:
+        if args.abci_command == "echo":
+            print(c.echo(args.arg or "hello"))
+        elif args.abci_command == "info":
+            i = c.info()
+            print(f"data={i.data} version={i.version} "
+                  f"height={i.last_block_height} "
+                  f"app_hash={i.last_block_app_hash.hex()}")
+        elif args.abci_command == "query":
+            code, value = c.query(args.path, (args.arg or "").encode())
+            print(f"code={code} value={value!r}")
+        elif args.abci_command == "check_tx":
+            r = c.check_tx((args.arg or "").encode())
+            print(f"code={r.code} log={r.log!r}")
+        else:
+            print(f"unknown abci command {args.abci_command!r} "
+                  f"(echo|info|query|check_tx)", file=sys.stderr)
+            return 1
+        return 0
+    finally:
+        c.close()
 
 
 def cmd_device_server(args) -> int:
@@ -354,6 +438,9 @@ def build_parser() -> argparse.ArgumentParser:
     rb.add_argument("--hard", action="store_true")
     bsst = add("bootstrap-state", cmd_bootstrap_state)
     bsst.add_argument("--height", type=int, default=0)
+    bsst.add_argument("--device", default="",
+                      help="torch device the light client verifies on: "
+                      "cuda (the default) or cpu")
     add("reset", cmd_reset)
     add("show-node-id", cmd_show_node_id)
     add("show-validator", cmd_show_validator)
@@ -371,6 +458,9 @@ def build_parser() -> argparse.ArgumentParser:
     lt.add_argument("--trusted-hash", dest="trusted_hash", default="")
     lt.add_argument("--trust-period", dest="trust_period", type=int,
                     default=168 * 3600)
+    lt.add_argument("--device", default="",
+                    help="torch device the light client verifies on: cuda "
+                    "(the default) or cpu")
     lt.set_defaults(fn=cmd_light)
     ac = sub.add_parser("abci-cli")
     ac.add_argument("abci_command")

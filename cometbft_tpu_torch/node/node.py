@@ -34,10 +34,21 @@ JAX package reaches its device:
   device under a `DeviceWatchdog`; it drains nothing. With a device
   server it is the `DeviceClientBackend` with the health supervisor, as
   in the JAX package.
+- Statesync (`[statesync] enable`, `_run_statesync`) anchors through a
+  light client on the node's device, and narrows the JAX package's
+  catch-alls (`statesync/syncer.py`): only `StateSyncError` (a peer's
+  fault: an unanchorable snapshot, a chunk the app refuses, a source's
+  transport error) or finding nothing before `discovery_time_ms` leads
+  to blocksync from genesis, where the JAX package falls back on any
+  exception. Anything else (a kernel build or launch, `KernelCanaryError`
+  inside the anchor's verify, the app's own connection failing) stops
+  the boot and is kept in `boot_error`.
+- A remote app over `proxy_app = tcp://` is the port's `abci/socket.py`
+  client, and `[tx_index] indexer = "sqlite"` the port's
+  `indexer/sqlite.py`, as in the JAX package.
 - Not ported yet, each raising NotImplementedError at construction:
-  `[device] mesh` (ROADMAP.md Queue 1 item 5), `[statesync] enable`
-  (item 11.1), a `[grpc]` listener (item 11.2), the sqlite indexer
-  (item 11.3) and a remote ABCI app (item 11.4).
+  `[device] mesh` (ROADMAP.md Queue 1 item 5), a `[grpc]` listener (item
+  11.2) and a `grpc://` app (item 11.4): gRPC needs the grpcio package.
 - `stop()` closes every listener and joins every thread it started.
 """
 
@@ -134,9 +145,9 @@ class Node:
                  node_key: Optional[Ed25519PrivKey] = None,
                  client_creator=None, device=None):
         config.validate_basic()
-        self._refuse_unported(config, remote_app=(
+        self._refuse_unported(config, grpc_app=(
             app is None and client_creator is None
-            and config.base.proxy_app != "kvstore"))
+            and config.base.proxy_app.startswith("grpc://")))
         self.config = config
         self.device = resolve_device(device)
         # the boot thread's fatal error (a kernel fault), else None
@@ -144,6 +155,8 @@ class Node:
         self._boot_thread: Optional[threading.Thread] = None
         self._boot_source = None
         self.boot_engine = None      # the last boot sync's reactor
+        self.statesync_syncer = None  # the last statesync attempt's Syncer
+        self.statesync_state: Optional[State] = None  # what it bootstrapped
         self._stopping = threading.Event()
         self.genesis = genesis or load_genesis(
             config.path(config.base.genesis_file))
@@ -205,22 +218,34 @@ class Node:
             register_pops_batch(self.genesis.bls_pops, device=self.device)
 
         # --- proxy app (node.go:319): in-process app, explicit client
-        # creator, or [base] proxy_app = kvstore ------------------------------
+        # creator, or [base] proxy_app = tcp://host:port (the socket
+        # flavor — reference proxy.DefaultClientCreator; a grpc:// app was
+        # refused by _refuse_unported) ---------------------------------------
         if client_creator is None:
             if app is not None:
                 client_creator = local_client_creator(app)
-            else:
-                # [base] proxy_app = kvstore (a remote app was refused
-                # by _refuse_unported)
+            elif config.base.proxy_app == "kvstore":
                 from ..abci.kvstore import KVStoreApplication
                 client_creator = local_client_creator(KVStoreApplication())
+            else:
+                from ..proxy.multi_app_conn import remote_client_creator
+                host, port = self._split_addr(
+                    config.base.proxy_app.removeprefix("tcp://"))
+                client_creator = remote_client_creator(host, port)
         self.app_conns = AppConns(client_creator)
         self._handshake(state)
 
         # --- event bus + indexers (node.go:328-334) --------------------------
         self.event_bus = EventBus()
-        self.tx_indexer = TxIndexer(self._indexer_db)
-        self.block_indexer = BlockIndexer(self._indexer_db)
+        if config.tx_index.indexer == "sqlite":
+            # relational sink (reference psql sink's role,
+            # state/indexer/sink/psql): same interface, sqlite file
+            from ..indexer.sqlite import open_sqlite_indexers
+            self.tx_indexer, self.block_indexer = open_sqlite_indexers(
+                config.path(config.base.db_dir))
+        else:
+            self.tx_indexer = TxIndexer(self._indexer_db)
+            self.block_indexer = BlockIndexer(self._indexer_db)
         self.indexer_service = IndexerService(
             self.tx_indexer, self.block_indexer, self.event_bus)
 
@@ -432,32 +457,23 @@ class Node:
                 if rc.tls_key_file else "")
 
     @staticmethod
-    def _refuse_unported(config: Config, remote_app: bool) -> None:
+    def _refuse_unported(config: Config, grpc_app: bool) -> None:
         """Branches whose modules are not ported raise here, before any
         store is opened, instead of falling back to something else."""
-        if remote_app:
+        if grpc_app:
             raise NotImplementedError(
-                "a remote ABCI app (proxy_app tcp:// or grpc://) needs "
-                "abci/socket.py and abci/grpc.py, not ported yet "
-                "(ROADMAP.md Queue 1 item 11.4)")
+                "a gRPC ABCI app (proxy_app grpc://) needs abci/grpc.py and "
+                "the grpcio package, not ported yet (ROADMAP.md Queue 1 "
+                "item 11.4)")
         if config.device.mesh:
             raise NotImplementedError(
                 "[device] mesh needs the multi-card mesh, not ported yet "
                 "(ROADMAP.md Queue 1 item 5)")
-        if config.statesync.enable:
-            raise NotImplementedError(
-                "[statesync] enable needs statesync/syncer.py and "
-                "stateprovider.py, not ported yet (ROADMAP.md Queue 1 "
-                "item 11.1)")
         if config.grpc.laddr or (config.grpc.privileged_laddr
                                  and config.grpc.pruning_service):
             raise NotImplementedError(
-                "[grpc] listeners need rpc/grpc.py, not ported yet "
-                "(ROADMAP.md Queue 1 item 11.2)")
-        if config.tx_index.indexer == "sqlite":
-            raise NotImplementedError(
-                "[tx_index] indexer = sqlite needs indexer/sqlite.py, not "
-                "ported yet (ROADMAP.md Queue 1 item 11.3)")
+                "[grpc] listeners need rpc/grpc.py and the grpcio package, "
+                "not ported yet (ROADMAP.md Queue 1 item 11.2)")
 
     @staticmethod
     def _split_addr(addr: str):
@@ -556,6 +572,58 @@ class Node:
             traceback.print_exc()
             self.boot_error = e
 
+    def _run_statesync(self) -> Optional[State]:
+        """Snapshot-sync a fresh node (reference node.go:591-601
+        startStateSync): discover snapshots on the p2p channel, restore
+        the app from chunks, anchor against the light client built from
+        [statesync] rpc_servers on the node's device, persist the
+        bootstrapped state + seen commit, and return the State for
+        blocksync to continue from. Returns None when nothing restored
+        before `discovery_time_ms` (boot falls back to blocksync from
+        genesis); raises StateSyncError when the rpc_servers cannot give
+        the light client its trust root. Any other error propagates."""
+        from ..libs import timesource
+        from ..statesync import (StateSyncError, Syncer,
+                                 light_provider_from_config,
+                                 net_snapshot_sources)
+        from ..light import PEER_ERRORS
+
+        ss = self.config.statesync
+        try:
+            provider = light_provider_from_config(ss, self.genesis,
+                                                  device=self.device)
+        except PEER_ERRORS as e:
+            raise StateSyncError(f"no trust root: {e!r}") from e
+
+        # discovery waits read the timesource seam: wall clocks on a
+        # live node, and under a virtual source the deadline math
+        # follows the simulated clock
+        deadline = timesource.monotonic() + ss.discovery_time_ms / 1000.0
+        state = None
+        while timesource.monotonic() < deadline and \
+                not self._stopping.is_set():
+            sources = net_snapshot_sources(self.statesync_reactor)
+            if sources:
+                self.statesync_syncer = Syncer(
+                    self.app_conns.snapshot, provider, sources)
+                try:
+                    state = self.statesync_syncer.sync()
+                    break
+                except StateSyncError:
+                    # snapshots may be too close to the tip for the
+                    # height+2 anchor; the chain advances — retry
+                    pass
+            timesource.sleep(0.5)
+        if state is None:
+            return None
+        # persist the bootstrap (reference node.go:152 BootstrapState)
+        self.state_store.save(state)
+        self.block_store.bootstrap_seen_commit(
+            state.last_block_height,
+            provider.commit(state.last_block_height))
+        self.statesync_state = state
+        return state
+
     def _sync_then_consensus(self) -> None:
         from ..engine.blocksync import (BlocksyncReactor, SyncStalled)
         from ..engine.pool import PooledSource
@@ -563,6 +631,20 @@ class Node:
         from ..state.execution import BlockValidationError
         src = NetSource(self.blocksync_reactor, self.switch)
         state = self.consensus.state
+        if self.config.statesync.enable and state.last_block_height == 0:
+            from ..statesync import StateSyncError
+            try:
+                synced = self._run_statesync()
+            except StateSyncError:
+                # the peers' fault: blocksync from genesis remains the
+                # safe fallback. Any other error leaves this method
+                import traceback
+                traceback.print_exc()
+                synced = None
+            if self._stopping.is_set():
+                return
+            if synced is not None:
+                state = synced
         if self.config.blocksync.seal_sync:
             # sealsync (docs/SEALSYNC.md): adopt decided heights from
             # aggregate seals FIRST — O(pivots) pairings for the whole
@@ -718,4 +800,8 @@ class Node:
         self.indexer_service.stop()
         if self.rpc_server is not None:
             self.rpc_server.stop()
+        for sink in (self.tx_indexer, self.block_indexer):
+            close = getattr(sink, "close", None)  # the sqlite connection
+            if close is not None:
+                close()
         self.app_conns.stop()

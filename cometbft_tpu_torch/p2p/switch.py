@@ -6,8 +6,8 @@ MConnection over a SecretConnection) and routes inbound messages to the
 reactor that claimed the channel. Broadcast fans a message to every
 connected peer's channel queue.
 
-Copy of `cometbft_tpu/p2p/switch.py` (the port keeps its own);
-`p2p/pex.py` comes with node boot.
+Copy of `cometbft_tpu/p2p/switch.py` (the port keeps its own); peer
+exchange is `p2p/pex.py`.
 """
 
 from __future__ import annotations

@@ -14,8 +14,7 @@ timestamp-only change, where the previous signature is returned.
 Port of `cometbft_tpu/privval/file.py`: the state file is byte-compatible
 both ways (the same JSON keys in the same order, `key_type` included), so
 either package loads the other's. Signing is the port's native ed25519.
-`privval/remote.py` (the remote signer) comes with node boot (ROADMAP.md
-Queue 1 item 10).
+The remote signer is `privval/remote.py`.
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ in-process Application behind a mutex (the reference's committing local
 client); remote creator dials the ABCI socket server once per
 connection — four independent sockets, like the reference.
 
-Copy of `cometbft_tpu/proxy/multi_app_conn.py` in the port. The remote
-creators raise NotImplementedError when called: the socket and gRPC
-ABCI clients are not ported yet (ROADMAP.md Queue 1 item 11.4).
+Copy of `cometbft_tpu/proxy/multi_app_conn.py` in the port. The socket
+creator dials the port's `abci/socket.SocketClient`; the gRPC creator
+raises NotImplementedError when called: the gRPC ABCI client needs the
+grpcio package and is not ported (ROADMAP.md Queue 1 item 11.4).
 """
 
 from __future__ import annotations
@@ -51,9 +52,10 @@ def local_client_creator(app: Application) -> Callable[[], Application]:
 
 def remote_client_creator(host: str, port: int) -> Callable[[], Application]:
     """reference proxy.NewRemoteClientCreator (socket transport)."""
-    raise NotImplementedError(
-        "a remote ABCI app needs abci/socket.py, not ported yet "
-        "(ROADMAP.md Queue 1 item 11.4)")
+    def create() -> Application:
+        from ..abci.socket import SocketClient
+        return SocketClient(host, port)
+    return create
 
 
 def remote_grpc_client_creator(host: str, port: int
@@ -61,8 +63,8 @@ def remote_grpc_client_creator(host: str, port: int
     """reference proxy.NewRemoteClientCreator with transport=grpc —
     four independent channels, one per named connection."""
     raise NotImplementedError(
-        "a remote gRPC ABCI app needs abci/grpc.py, not ported yet "
-        "(ROADMAP.md Queue 1 item 11.4)")
+        "a remote gRPC ABCI app needs abci/grpc.py and the grpcio "
+        "package, not ported yet (ROADMAP.md Queue 1 item 11.4)")
 
 
 class AppConns:

@@ -6,14 +6,14 @@ Both calling conventions the reference supports:
   POST /            {"jsonrpc":"2.0","method":...,"params":{...},"id":...}
   GET  /<method>?param=value          (URI convention)
 Binary params are hex strings (the reference uses 0x-hex/base64 per
-field; here hex uniformly). Event subscription is long-poll
-(`wait_event`) rather than a WebSocket push — same pubsub semantics
-behind the node's event bus.
+field; here hex uniformly). Event subscriptions are pushed over a
+WebSocket (GET /websocket with an Upgrade, `rpc/websocket.py`) or
+long-polled (`wait_event`) — same pubsub semantics behind the node's
+event bus.
 
-Copy of `cometbft_tpu/rpc/server.py` in the port, every route kept. The
-port has no WebSocket endpoint yet (`rpc/websocket.py`, ROADMAP.md
-Queue 1 item 11.2): GET /websocket answers "method not found"; long-poll
-`wait_event` serves the same subscriptions.
+Copy of `cometbft_tpu/rpc/server.py` in the port, every route and the
+WebSocket endpoint kept. `stop()` also closes every live WebSocket
+session before it joins the handler threads.
 """
 
 from __future__ import annotations
@@ -730,6 +730,8 @@ class RPCServer:
         https when a cert/key pair is given."""
         allowed_origins = [o.strip() for o in cors_origins.split(",")
                            if o.strip()]
+        from .websocket import Sessions
+        self._ws_sessions = sessions = Sessions()
         if methods is None:
             routes = Routes(env)
             names = ["health", "status", "net_info", "genesis",
@@ -875,6 +877,15 @@ class RPCServer:
             def do_GET(self):
                 parsed = urllib.parse.urlparse(self.path)
                 method = parsed.path.strip("/")
+                if method == "websocket":
+                    from .websocket import (is_websocket_upgrade,
+                                            serve_websocket)
+                    if is_websocket_upgrade(self.headers) and \
+                            env is not None and \
+                            env.event_bus is not None:
+                        serve_websocket(self, env.event_bus, sessions)
+                        self.close_connection = True
+                        return
                 params = {k: v[0] for k, v in
                           urllib.parse.parse_qs(parsed.query).items()}
                 self._run(method or "health", params, -1)
@@ -902,6 +913,7 @@ class RPCServer:
         self._thread.start()
 
     def stop(self) -> None:
+        self._ws_sessions.close_all()
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:

@@ -190,3 +190,25 @@ def _revalidators(side: str, vals):
     return [validator.Validator(
         keys.pubkey_from_type_bytes(v.pub_key.type_(), v.pub_key.bytes_()),
         v.voting_power) for v in vals]
+
+
+def serving_node(side: str, home: str, chain, height: int):
+    """A started `side` node over a home holding the chain's blocks
+    1..`height` (state at `height`, `write_home`), block sync off, RPC and
+    p2p on loopback ports: its handshake replays the chain into a fresh
+    kvstore, which keeps the snapshots of the last two multiples of 5. It
+    is no validator, so the chain stays at `height`. `node.home` is the
+    home."""
+    write_home(side, home, chain, height)
+    cfg = mod(side, "config").Config.load(home)
+    cfg.base.block_sync = False
+    cfg.p2p.laddr = cfg.rpc.laddr = "127.0.0.1:0"
+    nd = mod(side, "node.node").Node(cfg, **dev(side))
+    nd.start()
+    nd.home = home
+    return nd
+
+
+def rpc_addr(nd) -> str:
+    h, p = nd.rpc_server.addr
+    return f"{h}:{p}"

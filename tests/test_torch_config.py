@@ -216,16 +216,9 @@ def test_privval_files_cross_read(tmp_path, writer, reader):
 
 UNPORTED = {
     "device_mesh": ({"device__mesh": True}, "item 5"),
-    "statesync_enable": ({"statesync__enable": True,
-                          "statesync__rpc_servers": "a:1,b:2",
-                          "statesync__trust_height": 1,
-                          "statesync__trust_hash": "ab" * 32}, "item 11.1"),
     "grpc_laddr": ({"grpc__laddr": "127.0.0.1:0"}, "item 11.2"),
     "grpc_privileged": ({"grpc__privileged_laddr": "127.0.0.1:0",
                          "grpc__pruning_service": True}, "item 11.2"),
-    "sqlite_indexer": ({"tx_index__indexer": "sqlite"}, "item 11.3"),
-    "remote_socket_app": ({"base__proxy_app": "tcp://127.0.0.1:26658"},
-                          "item 11.4"),
     "remote_grpc_app": ({"base__proxy_app": "grpc://127.0.0.1:26658"},
                         "item 11.4"),
 }
@@ -246,3 +239,88 @@ def test_unported_branches_raise_at_construction(tmp_path, case):
         Node(cfg, device="cpu")
     assert f"ROADMAP.md Queue 1 {item}" in str(e.value)
     assert not os.path.exists(cfg.path("data/cs.wal"))
+
+
+# --- branches ported since node boot --------------------------------------
+
+PORTED = {
+    # the rpc_servers answer nothing: the light client has no trust root
+    # (StateSyncError) and the boot falls back to blocksync from genesis
+    "statesync_enable": {"statesync__enable": True,
+                         "statesync__rpc_servers": "127.0.0.1:1,"
+                                                   "127.0.0.1:2",
+                         "statesync__trust_height": 1,
+                         "statesync__trust_hash": "ab" * 32,
+                         "statesync__discovery_time_ms": 1000},
+    "sqlite_indexer": {"tx_index__indexer": "sqlite"},
+    "remote_socket_app": {},     # proxy_app: an ABCIServer's address
+}
+
+
+def _websocket(addr):
+    """An open WebSocket session on a node's RPC, subscribed to NewBlock."""
+    from cometbft_tpu_torch.rpc.websocket import WSClient
+    ws = WSClient(addr, timeout=30)
+    ws.send(json.dumps({"jsonrpc": "2.0", "id": 1, "method": "subscribe",
+                        "params": {"query": "tm.event = 'NewBlock'"}}
+                       ).encode())
+    ws.handshake()
+    return ws.sock
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_branches_build_a_working_node(tmp_path, case):
+    """Each branch that raised before its module was ported builds a
+    node that commits a tx, reads it back and finds it indexed; with a
+    WebSocket subscriber still connected, stop() (and the app server's)
+    leaves no thread running."""
+    import threading
+    from _torch_node import make_node, wait_for
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.abci.socket import ABCIServer
+    from cometbft_tpu_torch.node.node import save_genesis
+    from cometbft_tpu_torch.pubsub.query import Query
+    before = set(threading.enumerate())
+    paths, gen = write_validators(tmp_path, 1)
+    gpath = str(tmp_path / "genesis.json")
+    save_genesis(gen, gpath)
+    fields = dict(PORTED[case])
+    server = nd = None
+    try:
+        if case == "remote_socket_app":
+            server = ABCIServer(KVStoreApplication())
+            server.start()
+            fields["base__proxy_app"] = "tcp://%s:%d" % server.addr
+        nd = make_node("port", str(tmp_path / "home"), gpath, paths[0],
+                       block_sync=case == "statesync_enable", **fields)
+        nd.start()
+        ws = _websocket(nd.rpc_server.addr)
+        wait_for(lambda: nd.consensus.state.last_block_height >= 1,
+                 "the first commit")
+        assert nd.mempool.check_tx(b"branch=works") == 0
+        wait_for(lambda: nd.app_conns.query.query("/store", b"branch")
+                 == (0, b"works"), "the tx committed")
+        wait_for(lambda: nd.tx_indexer.search(Query("tx.height > 0")),
+                 "the tx indexed")
+        assert nd.boot_error is None
+        if case == "statesync_enable":
+            assert nd.statesync_state is None
+        if case == "sqlite_indexer":
+            assert os.path.exists(nd.config.path("data/indexer.sqlite"))
+    finally:
+        if nd is not None:
+            nd.stop()
+        if server is not None:
+            server.stop()
+    ws.settimeout(10)
+    while ws.recv(1 << 16):     # stop() closed the session: EOF, no hang
+        pass
+    ws.close()
+
+    def left():
+        return [t.name for t in set(threading.enumerate()) - before
+                if t.is_alive()]
+    try:
+        wait_for(lambda: not left(), "the node's threads ended", 10)
+    except TimeoutError:
+        raise AssertionError(f"threads left running: {left()}")

@@ -231,7 +231,8 @@ def test_cached_key_signer_matches_ref_sign():
 def test_import_leaves_jax_and_reference_unloaded():
     """Every module of the package, imported in a fresh interpreter,
     loads neither jax nor the JAX package, nor the `cryptography` wheel
-    (the card's machine has none)."""
+    (the card's machine has none) nor `grpc` (the gRPC transports are
+    not ported yet)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cometbft_tpu_torch as pkg\n"
@@ -254,11 +255,16 @@ def test_import_leaves_jax_and_reference_unloaded():
         "            'pubsub.events', 'indexer.kv', 'proxy.multi_app_conn',\n"
         "            'state.pruner', 'state.rollback', 'mempool.reactor',\n"
         "            'evidence.reactor', 'statesync.reactor', 'rpc.server',\n"
-        "            'rpc.client', 'node.node', 'cmd.main'):\n"
+        "            'rpc.client', 'node.node', 'cmd.main',\n"
+        "            'statesync.syncer', 'statesync.stateprovider',\n"
+        "            'abci.socket', 'abci.grammar', 'light.rpc',\n"
+        "            'rpc.websocket', 'indexer.sqlite', 'privval.remote',\n"
+        "            'p2p.pex'):\n"
         "    assert 'cometbft_tpu_torch.' + new in names, (new, names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cometbft_tpu' or m.startswith('cometbft_tpu.')\n"
-        "       or m == 'cryptography' or m.startswith('cryptography.')]\n"
+        "       or m == 'cryptography' or m.startswith('cryptography.')\n"
+        "       or m == 'grpc' or m.startswith('grpc.')]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -287,7 +293,7 @@ def test_no_jax_or_reference_import_in_package():
                 for name in names:
                     top = name.split(".")[0]
                     if top in ("jax", "jaxlib", "cometbft_tpu",
-                               "cryptography"):
+                               "cryptography", "grpc"):
                         found.append(f"{path}:{node.lineno} {name}")
     assert not found, found
 
